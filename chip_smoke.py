@@ -57,6 +57,17 @@ Phases, one JSON line each:
    ``rmv_fast``, ``mv`` and ``rmv`` at kp 64 and of the overflow
    ``ell_spmm`` products, and ``tiled_idle``: the device idle share of a
    warm ``fit_transform``.
+10. ``library``: one PyTorch call per kernel that computes the same
+   function, timed with CUDA events and used nowhere in the port: the
+   float32 CSR ``.to_dense()`` of one 8,192-row north-star slab
+   (densify), float32 ``torch.sparse_csr_tensor`` products ``X @ B`` and
+   ``X^T @ C`` at kp 64 on the tiled path's matrix (spmm, rmv; bf16 too
+   where torch takes it). ``tiled_bounds``: the stored slots of the
+   engine's payload and the kernels' bounds.
+
+Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
+input read once, each output written once) over 3.35 TB/s and its
+float32 multiply-adds (2 x stored slots x kp) over 67 TFLOP/s.
 
 Then, as the last three lines: ``{"kernels": [...]}``, the card's
 ``name, power.limit`` from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -83,6 +94,17 @@ N_CELLS, N_GENES, K = 1_000_000, 30_000, 50  # the north star
 TILED_CELLS, TILED_GENES = 500_000, 60_664  # the tiled path: all human genes
 TILED_EV_FAIL = 1e-4  # the tiled phase fails above this EV error vs its f64 twin
 KERNEL_REL_FAIL = 1e-5  # spmm / rmv kernel vs plain, relative to max |plain|
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+
+
+def bound(nbytes: float, flops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the float32 operations over the float32 rate."""
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def emit(phase: str, **fields) -> None:
@@ -202,7 +224,7 @@ def phase_kernel(torch) -> dict:
                 raise AssertionError(f"densify kernel != plain ({case}, {out_dtype})")
             worst = max(worst, err)
             if case == "wt8" and out_dtype == torch.int8:
-                headline = dict(ms=ms, plain_ms=plain_ms)
+                headline = dict(ms=ms, plain_ms=plain_ms, **bound(moved))
             del got, want
     return dict(max_abs_err=worst, **headline)
 
@@ -375,7 +397,7 @@ def phase_idle(torch, eng, builder, m) -> None:
          warm_fit_transform=device_idle(torch, lambda: builder().build().fit_transform(m)))
 
 
-def phase_main_path(torch) -> int:
+def phase_main_path(torch) -> tuple:
     """The main path once, through the user-facing entry points."""
 
     import numpy as np
@@ -457,7 +479,56 @@ def phase_main_path(torch) -> int:
     )
     if not ev_rel_err <= EV_FAIL:
         raise AssertionError(f"EV rel err {ev_rel_err} > {EV_FAIL}")
-    return launches
+    return launches, library_densify_ms(torch, X)
+
+
+def csr_on_card(torch, M, dtype):
+    import numpy as np
+
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(M.indptr.astype(np.int64)), torch.from_numpy(M.indices.astype(np.int64)),
+        torch.from_numpy(M.data.astype(np.float32)), size=M.shape,
+    ).to(device="cuda", dtype=dtype)
+
+
+def library_densify_ms(torch, X, slab: int = 8192) -> float:
+    """The densify kernel's yardstick: ``.to_dense()`` of the float32 CSR of
+    one 8,192-row slab of the north-star matrix (CUDA events)."""
+
+    A = csr_on_card(torch, X[:slab].tocsr(), torch.float32)
+    ms = _time_ms(torch, lambda: A.to_dense(), 10)
+    emit("library", kernel="tiled_ell_densify_t", call="float32 CSR [8192, p].to_dense()",
+         shape=list(A.shape), ms=ms)
+    return ms
+
+
+def library_tiled_ms(torch, X, kp: int = 64) -> dict:
+    """The tiled kernels' yardsticks, one PyTorch call each on the tiled
+    path's matrix (CUDA events): ``X @ B`` with X a float32
+    ``torch.sparse_csr_tensor`` and B [p, kp], and ``X^T @ C`` with the CSR
+    of X^T built beforehand and C [n, kp]; bf16 too where torch's CUDA CSR
+    product takes it. -> {kernel: float32 ms}."""
+
+    n, p = X.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    out = {}
+    for name, M, width in (("tiled_ell_spmm_t", X.tocsr(), p),
+                           ("tiled_ell_rmv_t", X.T.tocsr(), n)):
+        for dtype in (torch.float32, torch.bfloat16):
+            A = csr_on_card(torch, M, dtype)
+            D = torch.randn((width, kp), generator=gen, device="cuda").to(dtype)
+            try:
+                ms, err = _time_ms(torch, lambda: A @ D, 3), None
+            except (RuntimeError, NotImplementedError) as e:  # dtype support, reported
+                ms, err = None, str(e).splitlines()[0][:200]
+            emit("library", kernel=name, call=f"{str(dtype).split('.')[-1]} CSR {list(A.shape)} @ "
+                 f"dense {list(D.shape)}", ms=ms, refused=err)
+            if dtype == torch.float32:
+                out[name] = ms
+            del A, D
+            torch.cuda.empty_cache()
+    return out
 
 def _tiled_payload(torch, gen, R, ntiles, wt, ct, *, dtype, frac, dup=False, pad_rows=0):
     """A random transposed tiled payload on the card: per (tile, row) group
@@ -482,10 +553,11 @@ def _tiled_payload(torch, gen, R, ntiles, wt, ct, *, dtype, frac, dup=False, pad
 
 
 def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, odt,
-                   pad=0, plain_reps=2) -> None:
-    """Both tiled kernels against their plain versions on one payload with
-    a random operand of dtype ``odt``: emits a ``kernel_spmm`` and a
-    ``kernel_rmv`` line, fails above KERNEL_REL_FAIL, and folds the
+                   pad=0, plain_reps=2, rmv=True) -> None:
+    """Both tiled kernels (spmm alone where ``rmv`` is false) against their
+    plain versions on one payload with a random operand of dtype ``odt``:
+    emits a ``kernel_spmm`` and a ``kernel_rmv`` line, fails above
+    KERNEL_REL_FAIL or where a repeated launch differs, and folds the
     worst abs error into ``result``."""
 
     from single_algebra_tpu_torch.ops.spmm_kernel import (
@@ -497,7 +569,7 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
     for phase, fn, plain, width in (
         ("kernel_spmm", tiled_ell_spmm_t, tiled_ell_spmm_t_plain, ntiles * ct),
         ("kernel_rmv", tiled_ell_rmv_t, tiled_ell_rmv_t_plain, R),
-    ):
+    )[:2 if rmv else 1]:
         op = torch.randn((kp, width), generator=gen, device=vals.device).to(odt)
         got = fn(vals, ids, op, **kw)
         want = plain(vals, ids, op, **kw)
@@ -514,8 +586,9 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
              operand=str(odt).split(".")[-1], R=R, ntiles=ntiles, col_tile=ct, kp=kp,
              rel_err=rel, max_abs_err=abs_err, repeat_equal=repeat_equal,
              pad_block_zero=pad_zero, ms=ms, plain_ms=plain_ms)
-        if not rel <= KERNEL_REL_FAIL or pad_zero is False:
-            raise AssertionError(f"{phase} {case}: kernel vs plain rel err {rel}")
+        if not rel <= KERNEL_REL_FAIL or pad_zero is False or not repeat_equal:
+            raise AssertionError(f"{phase} {case}: kernel vs plain rel err {rel}, "
+                                 f"repeat_equal={repeat_equal}, pad_block_zero={pad_zero}")
         name = "tiled_ell_spmm_t" if phase == "kernel_spmm" else "tiled_ell_rmv_t"
         entry = result.setdefault(name, dict(max_abs_err=0.0))
         entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
@@ -553,18 +626,32 @@ def phase_kernel_tiled(torch, result: dict) -> None:
 
 def phase_kernel_tiled_path(torch, op, result: dict) -> None:
     """spmm and rmv kernels vs their plain versions on the tiled engine's
-    own payload, at the shapes the path gives them (all its rows, kp 64):
+    own payload, at the shapes the path gives them (all its rows): at kp 64
     the bf16 operand of the power iterations and the float32 operand of
-    the precise products. These cases give the kernels line its times."""
+    the precise products, and spmm at the projection's kp 56 with a float32
+    operand (the one shape whose kp is not a multiple of the kernel's
+    output chunk). The kp 64 bf16 case gives the kernels line its times."""
 
     wt, ntiles, ct = op.meta[:3]
     gen = torch.Generator(device=op.device)
     gen.manual_seed(4)
-    for case, odt in (("path_bf16_x_bf16", torch.bfloat16), ("path_bf16_x_f32", torch.float32)):
+    for case, odt, kp, rmv in (("path_bf16_x_bf16", torch.bfloat16, 64, True),
+                               ("path_bf16_x_f32", torch.float32, 64, True),
+                               ("path_bf16_x_f32_kp56", torch.float32, 56, False)):
         _compare_tiled(torch, result, gen, case, op.tdata, op.tlocal, wt=wt, ntiles=ntiles,
-                       ct=ct, kp=64, odt=odt, plain_reps=1)
+                       ct=ct, kp=kp, odt=odt, plain_reps=1, rmv=rmv)
     for entry in result.values():
         entry.update(entry["cases"]["path_bf16_x_bf16"])
+    # bounds of the bf16 x bf16 case at kp 64: each input read once, each
+    # output written once; one multiply-add per stored slot and output column
+    R, kp = op.tdata.shape[1], 64
+    payload = op.tdata.numel() * op.tdata.element_size() + op.tlocal.numel() * 4
+    stored = int((op.tdata != 0).sum())
+    flops = 2.0 * stored * kp
+    result["tiled_ell_spmm_t"].update(bound(payload + kp * ntiles * ct * 2 + kp * R * 4, flops))
+    result["tiled_ell_rmv_t"].update(bound(payload + kp * R * 2 + ntiles * ct * kp * 4, flops))
+    emit("tiled_bounds", stored=stored, slots=op.tdata.numel(), payload_bytes=payload,
+         spmm=result["tiled_ell_spmm_t"]["bound_ms"], rmv=result["tiled_ell_rmv_t"]["bound_ms"])
 
 
 class Csr64Operator:
@@ -687,6 +774,8 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     emit("tiled_idle", warm_fit_transform=device_idle(
         torch, lambda: builder().build().fit_transform(m), top=8))
     phase_kernel_tiled_path(torch, op, kernel_result)
+    for name, ms in library_tiled_ms(torch, X).items():
+        kernel_result[name]["library_ms"] = ms
 
     # EV bar: the same randomized algorithm, the same sketch, float64 products
     l = k + 10
@@ -755,7 +844,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(torch)
     phase_gram_tiers(torch)
-    launches = phase_main_path(torch)
+    launches, kern["library_ms"] = phase_main_path(torch)
     torch.cuda.empty_cache()
     tiled_kern = {}
     phase_kernel_tiled(torch, tiled_kern)
@@ -769,6 +858,7 @@ def main() -> int:
         "name": k["name"], "route": "cuda", "source": k["source"],
         "replaces": f"{TPU_KERNELS}:{k['line']}", "launches": k["launches"],
         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"], "library_ms": k["library_ms"],
     } for k in kernels]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -236,7 +236,7 @@ class GramPCAEngine:
         return cache[col_tile]
 
     @staticmethod
-    def hbm_budget_bytes(device: torch.device | str = "cpu") -> int:
+    def hbm_budget_bytes(device: torch.device | str) -> int:
         """0.8 of the CUDA device's memory (the plan charges every large
         buffer itself). Other devices get the JAX package's 12 GiB
         fallback, so CPU runs plan as it does there."""
@@ -309,7 +309,7 @@ class GramPCAEngine:
 
     @classmethod
     def from_arrays(
-        cls, bdata, blocal, pos, gidx, shape, meta, bwidths, device="cpu"
+        cls, bdata, blocal, pos, gidx, shape, meta, bwidths, device="cuda"
     ) -> "GramPCAEngine":
         """Engine on ``device`` from numpy arrays — the host build's, or
         the JAX engine's fields (``np.asarray`` of each)."""

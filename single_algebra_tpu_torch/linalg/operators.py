@@ -156,7 +156,7 @@ class DensifiedOperator:
     randomized solve's workspace."""
 
     @staticmethod
-    def hbm_budget_bytes(device: torch.device | str = "cpu") -> int:
+    def hbm_budget_bytes(device: torch.device | str) -> int:
         """0.6 of the CUDA device's memory. Other devices get the JAX
         package's 9 GiB fallback, so CPU runs plan as it does there."""
 
@@ -165,8 +165,8 @@ class DensifiedOperator:
 
     @classmethod
     def fits(
-        cls, shape, budget_bytes: int | None = None, needs_lo: bool = False,
-        device: torch.device | str = "cpu",
+        cls, shape, budget_bytes: int | None = None, needs_lo: bool = False, *,
+        device: torch.device | str,
     ) -> bool:
         if budget_bytes is None:
             budget_bytes = cls.hbm_budget_bytes(device)

@@ -49,7 +49,10 @@ _NOT_PORTED = {
 _LANCZOS_NOT_PORTED = "ROADMAP Queue 1 item 5 (lanczos_svd, block_lanczos_svd)"
 
 
-def _as_matrix(x, device="cpu") -> SparseMatrix:
+def _as_matrix(x, device="cuda") -> SparseMatrix:
+    """A scipy input becomes a matrix on ``device`` (the card unless the
+    caller names another); a ``SparseMatrix`` keeps its own device."""
+
     if isinstance(x, SparseMatrix):
         return x
     return SparseMatrix.from_scipy(x, device=device)
@@ -449,7 +452,7 @@ class SparsePCA(_LazyPCAState):
     @classmethod
     def from_state(
         cls, state: dict, *, center: bool = True, random_seed: int = 42,
-        device="cpu",
+        device="cuda",
     ) -> "SparsePCA":
         """A fitted model from numpy state: ``components`` (k x p),
         ``explained_variance``, ``mean``, ``total_variance`` and
@@ -483,7 +486,7 @@ class SparsePCA(_LazyPCAState):
         )
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "SparsePCA":
+    def load(cls, path: str, device="cuda") -> "SparsePCA":
         if not os.path.exists(path) and os.path.exists(path + ".npz"):
             path += ".npz"  # np.savez appends the suffix; np.load does not
         with np.load(path) as z:

@@ -20,11 +20,19 @@ kernel (``csrc/tiled_ell_spmm.cu``, built with nvcc for ``sm_90a`` on first
 use) or raises; on CPU tensors it runs its ``*_plain`` twin. The kernels
 take bf16 or float32 payloads and operands and accumulate and return
 float32; float64 and non-contiguous inputs are refused, as
-``_check_mosaic_dtype`` refuses 64-bit payloads on the TPU. Each slot's
+``_check_mosaic_dtype`` refuses 64-bit payloads on the TPU, and so are
+payloads whose rows (``R``) are not a multiple of 8 or whose storage is
+not 16-byte aligned, which the kernels' bulk copies need. Each slot's
 product ``v * x`` is formed in float32, so a bf16 payload against a
 float32 operand is an f32-class product in one call (the TPU kernel's
 matrix unit rounds an f32 operand to bf16, which is why the JAX operator
 splits operands into three bf16 terms).
+
+Before each launch the wrapper lays the operand out for the kernel, in
+its own dtype: spmm's ``Bt`` tile-major (:func:`_spmm_operand`), rmv's
+``Ct`` back to the rows of ``C`` (:func:`_rmv_operand`); a launch plan
+(:func:`_spmm_plan`, :func:`_rmv_plan`) fixes the block shape and the
+shared memory, which must fit the card's 232,448 bytes.
 
 The plain versions are the TPU kernels' arithmetic in plain PyTorch: the
 one-hot densify of a group of column tiles
@@ -35,6 +43,7 @@ float64 payloads) contraction per group. They run on any device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -61,10 +70,12 @@ _PLAIN_GROUP_BYTES = 256 << 20  # dense one-hot slab of one plain-version step
 
 def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.tiled_ell_spmm_t_launch.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, i, p]
+    lib.tiled_ell_spmm_t_launch.argtypes = [
+        p, p, p, p, ll, i, i, i, i, i, i, i, i, ll, i, i, p,
+    ]
     lib.tiled_ell_spmm_t_launch.restype = i
     lib.tiled_ell_rmv_t_launch.argtypes = [
-        p, p, p, p, p, ll, i, i, i, i, i, ll, i, i, i, p,
+        p, p, p, p, p, ll, i, i, i, i, i, ll, i, i, i, i, ll, i, i, p,
     ]
     lib.tiled_ell_rmv_t_launch.restype = i
 
@@ -168,7 +179,7 @@ def tiled_ell_rmv_t_plain(
     return out.to(out_dtype)
 
 
-def _check_cuda(name, tdata, tlocal, op, col_tile, out_dtype):
+def _check_cuda(name, tdata, tlocal, op, out_dtype):
     if tdata.device.type != "cuda":
         raise ValueError(f"{name} runs on CPU or CUDA, got {tdata.device}")
     if tdata.dtype not in _KERNEL_DTYPES or op.dtype not in _KERNEL_DTYPES:
@@ -180,31 +191,153 @@ def _check_cuda(name, tdata, tlocal, op, col_tile, out_dtype):
         raise TypeError(f"the CUDA {name} kernel returns float32, not {out_dtype}")
     if not (tdata.is_contiguous() and tlocal.is_contiguous() and op.is_contiguous()):
         raise ValueError(f"the CUDA {name} kernel needs contiguous inputs")
+    if tdata.shape[1] % 8 or tdata.data_ptr() % 16 or tlocal.data_ptr() % 16:
+        raise ValueError(
+            f"the CUDA {name} kernel copies payload rows in 16-byte units: R must be a "
+            f"multiple of 8 and the payload 16-byte aligned (R = {tdata.shape[1]})"
+        )
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _check_plan_args(kp: int, col_tile: int) -> None:
+    if kp < 8 or kp % 8:
+        raise ValueError(f"kp must be a positive multiple of 8, got {kp}")
     if not 1 <= col_tile <= MAX_COL_TILE:
         raise ValueError(f"col_tile must be in [1, {MAX_COL_TILE}], got {col_tile}")
 
 
-def _spmm_chunk(kp: int, col_tile: int) -> int:
-    """Output rows per spmm block (the register accumulators): 16, 32 or
-    64, no wider than kp needs nor the shared memory holds."""
+class SpmmPlan(NamedTuple):
+    kc: int  # output columns per block (register accumulators): 16, 32 or 64
+    rows: int  # rows per block, one per consumer thread
+    slots: int  # payload slots per pipeline stage
+    stages: int  # payload stages in the ring (the operand ring has 2)
+    smem: int  # bytes of shared memory a block uses
 
+
+_SPMM_ROWS = (512, 256, 128)
+_SPMM_STAGES = (3, 2)
+_SPMM_SLOTS = 16
+_SPMM_BAR_BYTES = 128  # the kernel's mbarriers
+
+
+def _spmm_plan(wt: int, col_tile: int, kp: int, payload_dtype, operand_dtype) -> SpmmPlan:
+    """The spmm launch: the widest output chunk (up to 64) that kp needs,
+    then the most rows per block and payload stages whose shared memory
+    (two [col_tile, kc] operand stages plus the payload stages) fits;
+    narrower chunks only where nothing else fits."""
+
+    _check_plan_args(kp, col_tile)
+    psize = payload_dtype.itemsize + 4  # value + int32 id
+    osize = operand_dtype.itemsize
+    slots = max(1, min(wt, _SPMM_SLOTS))
     kc = 16 if kp <= 16 else 32 if kp <= 32 else 64
-    while kc > 16 and col_tile * (kc + 4) * 4 > _SMEM_LIMIT:
+    while kc >= 16:
+        for rows in _SPMM_ROWS:
+            for stages in _SPMM_STAGES:
+                smem = (_SPMM_BAR_BYTES + 2 * col_tile * kc * osize
+                        + stages * slots * rows * psize)
+                if smem <= _SMEM_LIMIT:
+                    return SpmmPlan(kc, rows, slots, stages, smem)
         kc //= 2
-    return kc
+    raise ValueError(f"no spmm launch fits col_tile = {col_tile}")
 
 
-def _rmv_plan(R: int, kp: int, ntiles: int, col_tile: int):
-    """(output columns per lane, rows per range, ranges) of an rmv launch:
-    two columns per lane when kp > 32 and the [col_tile, 64] accumulator
-    fits; row ranges so that the grid holds ~2048 blocks."""
+class RmvPlan(NamedTuple):
+    kc: int  # output columns per block (register accumulators of a thread): 32 or 64
+    chunks: int  # output column chunks, ceil(kp / kc)
+    col_groups: int  # 256-column groups of a tile, ceil(col_tile / 256)
+    rows: int  # rows per range, a multiple of 256
+    nranges: int  # row ranges, ceil(R / rows)
+    stages: int  # payload stages in shared memory: 2 where two blocks still fit a SM
+    smem: int  # bytes of shared memory a block uses
 
-    jpl = 2 if kp > 32 and (col_tile * 64 + 32 * 65) * 4 <= _SMEM_LIMIT else 1
-    chunks = -(-kp // (32 * jpl))
-    target = max(1, -(-2048 // (ntiles * chunks)))
-    rows = max(1024, -(-R // target))
-    rows = -(-rows // 32) * 32
-    return jpl, rows, -(-R // rows)
+
+_RMV_ROWS = 256  # rows per item (threads per block)
+_RMV_COLS = 256  # columns per group
+_RMV_SLOTS = 16  # slots per item
+_RMV_BLOCKS = 1024  # blocks the row ranges aim for
+_RMV_BAR_BYTES = 128  # the kernel's mbarriers
+_SM_SMEM = 233_472  # bytes of shared memory a SM holds, 1,024 of them reserved per block
+
+
+def _rmv_plan(R: int, kp: int, ntiles: int, col_tile: int, payload_dtype=torch.bfloat16,
+              operand_dtype=torch.bfloat16) -> RmvPlan:
+    """The rmv launch: 64 output columns per block when kp > 32, else 32;
+    row ranges of 256-row multiples so that the grid holds ~1024 blocks
+    (their [ntiles * col_tile, kp] partial sums are added in range order);
+    two payload stages where two thread blocks still fit a SM, else one
+    where that lets two fit, else two."""
+
+    _check_plan_args(kp, col_tile)
+    kc = 64 if kp > 32 else 32
+    chunks, groups = _cdiv(kp, kc), _cdiv(col_tile, _RMV_COLS)
+    target = max(1, _cdiv(_RMV_BLOCKS, ntiles * chunks * groups))
+    rows = _cdiv(max(_cdiv(R, target), 1), _RMV_ROWS) * _RMV_ROWS
+    ent = 4 if payload_dtype == torch.bfloat16 else 8  # packed (value, row)
+    # the item buffer (per warp: bucket starts, a 16-byte multiple of ints,
+    # and the warp's entries), the operand block and the payload stages
+    warps = _RMV_ROWS // 32
+    fixed = (_RMV_BAR_BYTES + warps * (4 * (_RMV_COLS + 4) + 32 * _RMV_SLOTS * ent)
+             + _RMV_ROWS * kc * operand_dtype.itemsize)
+    stage = _RMV_SLOTS * _RMV_ROWS * (payload_dtype.itemsize + 4)
+    stages = next((s for s in (2, 1) if 2 * (fixed + s * stage + 1024) <= _SM_SMEM), 2)
+    return RmvPlan(kc, chunks, groups, rows, max(_cdiv(R, rows), 1), stages,
+                   fixed + stages * stage)
+
+
+def _swizzle(x: torch.Tensor) -> torch.Tensor:
+    """``x [..., n, kc]`` with the 16-byte units of each row ``r`` (last
+    axis) permuted: unit ``u`` is stored at unit ``u ^ (r & m)``, ``m =
+    min(units per row, 8) - 1``. The kernels read unit u of row r at
+    ``u ^ (r & m)``, so the rows that the lanes of a warp gather fall on
+    different shared-memory banks."""
+
+    n, kc = x.shape[-2:]
+    per = 16 // x.element_size()  # elements per 16-byte unit
+    units = kc // per
+    mask = min(units, 8) - 1
+    if not mask:
+        return x.contiguous()
+    period = 8 if n % 8 == 0 else n  # the permutation repeats every 8 rows
+    dev = x.device
+    r = torch.arange(period, device=dev)
+    unit = torch.arange(units, device=dev)[None, :] ^ (r[:, None] & mask)
+    idx = (unit[:, :, None] * per + torch.arange(per, device=dev)).reshape(period, kc)
+    xr = x.reshape(*x.shape[:-2], n // period, period, kc)
+    return torch.gather(xr, -1, idx.expand(xr.shape)).reshape(x.shape)
+
+
+def _spmm_operand(Bt: torch.Tensor, ntiles: int, col_tile: int, kc: int) -> torch.Tensor:
+    """``Bt [kp, ntiles*col_tile]`` -> ``[nch, ntiles, col_tile, kc]`` in
+    Bt's dtype, nch = ceil(kp / kc): zero-padded to nch*kc output columns,
+    tile-major, so each (chunk, tile) operand block is one contiguous copy,
+    and swizzled by tile column (:func:`_swizzle`)."""
+
+    kp = Bt.shape[0]
+    nch = _cdiv(kp, kc)
+    x = Bt
+    if nch * kc != kp:
+        x = Bt.new_zeros((nch * kc, ntiles * col_tile))
+        x[:kp] = Bt
+    return _swizzle(x.view(nch, kc, ntiles, col_tile).permute(0, 2, 3, 1))
+
+
+def _rmv_operand(Ct: torch.Tensor, kc: int) -> torch.Tensor:
+    """``Ct [kp, R]`` -> ``[nch, R, kc]`` in Ct's dtype, nch = ceil(kp /
+    kc): the rows of ``C``, zero-padded to nch*kc columns, chunk by chunk,
+    so a block of rows is one contiguous copy, and swizzled by row
+    (:func:`_swizzle`)."""
+
+    kp, R = Ct.shape
+    nch = _cdiv(kp, kc)
+    x = Ct
+    if nch * kc != kp:
+        x = Ct.new_zeros((nch * kc, R))
+        x[:kp] = Ct
+    return _swizzle(x.view(nch, kc, R).transpose(1, 2))
 
 
 def tiled_ell_spmm_t(
@@ -226,18 +359,20 @@ def tiled_ell_spmm_t(
     if tdata_t.device.type == "cpu":
         return tiled_ell_spmm_t_plain(tdata_t, tlocal_t, Bt, out_dtype=out_dtype, **kw)
     _check(tdata_t, tlocal_t, Bt, op_width=ntiles * col_tile, **kw)
-    _check_cuda("tiled_ell_spmm_t", tdata_t, tlocal_t, Bt, col_tile, out_dtype)
+    _check_cuda("tiled_ell_spmm_t", tdata_t, tlocal_t, Bt, out_dtype)
     R, kp = tdata_t.shape[1], Bt.shape[0]
+    plan = _spmm_plan(wt, col_tile, kp, tdata_t.dtype, Bt.dtype)
     out = torch.empty((kp, R), dtype=torch.float32, device=tdata_t.device)
     if R == 0:
         return out
     lib = cuda_lib.load("tiled_ell_spmm", _bind)
     with torch.cuda.device(tdata_t.device):
+        bt = _spmm_operand(Bt, ntiles, col_tile, plan.kc)
         err = lib.tiled_ell_spmm_t_launch(
-            tdata_t.data_ptr(), tlocal_t.data_ptr(), Bt.data_ptr(), out.data_ptr(),
-            R, wt, ntiles, col_tile, kp, _spmm_chunk(kp, col_tile),
-            int(tdata_t.dtype == torch.bfloat16), int(Bt.dtype == torch.bfloat16),
-            cuda_lib.stream_of(tdata_t),
+            tdata_t.data_ptr(), tlocal_t.data_ptr(), bt.data_ptr(), out.data_ptr(),
+            R, wt, ntiles, col_tile, kp, plan.kc, plan.rows, plan.slots, plan.stages,
+            plan.smem, int(tdata_t.dtype == torch.bfloat16),
+            int(Bt.dtype == torch.bfloat16), cuda_lib.stream_of(tdata_t),
         )
     if err != 0:
         raise RuntimeError(f"tiled_ell_spmm_t launch failed: cudaError {err}")
@@ -266,20 +401,22 @@ def tiled_ell_rmv_t(
         return tiled_ell_rmv_t_plain(tdata_t, tlocal_t, Ct, out_dtype=out_dtype, **kw)
     R, kp = tdata_t.shape[1], Ct.shape[0]
     _check(tdata_t, tlocal_t, Ct, op_width=R, **kw)
-    _check_cuda("tiled_ell_rmv_t", tdata_t, tlocal_t, Ct, col_tile, out_dtype)
+    _check_cuda("tiled_ell_rmv_t", tdata_t, tlocal_t, Ct, out_dtype)
+    plan = _rmv_plan(R, kp, ntiles, col_tile, tdata_t.dtype, Ct.dtype)
     out = torch.empty((ntiles * col_tile, kp), dtype=torch.float32, device=tdata_t.device)
     if R == 0:
         return out.zero_()
-    jpl, rows, nranges = _rmv_plan(R, kp, ntiles, col_tile)
     part = out
-    if nranges > 1:
-        part = torch.empty((nranges, ntiles * col_tile, kp), dtype=torch.float32,
+    if plan.nranges > 1:
+        part = torch.empty((plan.nranges, ntiles * col_tile, kp), dtype=torch.float32,
                            device=tdata_t.device)
     lib = cuda_lib.load("tiled_ell_spmm", _bind)
     with torch.cuda.device(tdata_t.device):
+        cop = _rmv_operand(Ct, plan.kc)
         err = lib.tiled_ell_rmv_t_launch(
-            tdata_t.data_ptr(), tlocal_t.data_ptr(), Ct.data_ptr(), part.data_ptr(),
-            out.data_ptr(), R, wt, ntiles, col_tile, kp, jpl, rows, nranges,
+            tdata_t.data_ptr(), tlocal_t.data_ptr(), cop.data_ptr(), part.data_ptr(),
+            out.data_ptr(), R, wt, ntiles, col_tile, kp, plan.kc, plan.rows,
+            plan.nranges, plan.chunks, plan.col_groups, plan.stages, plan.smem,
             int(tdata_t.dtype == torch.bfloat16), int(Ct.dtype == torch.bfloat16),
             cuda_lib.stream_of(tdata_t),
         )

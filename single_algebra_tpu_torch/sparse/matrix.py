@@ -7,8 +7,10 @@ the major axis) plus the ``device`` every engine built from it lives on.
 The device-resident ELL layouts, the statistics and the value maps of
 the JAX container come with the engines that use them.
 
-``device`` is explicit: an engine built from the matrix puts its tensors
-there, and nothing switches to the CPU behind the caller's back.
+``device`` defaults to the card (``"cuda"``): an engine built from the
+matrix puts its tensors there, and nothing switches to the CPU behind the
+caller's back. On a machine without a card, building an engine from a
+default matrix raises; CPU runs pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ class SparseMatrix:
         data: np.ndarray,
         shape: Tuple[int, int],
         fmt: str = "csr",
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         if fmt not in ("csr", "csc"):
             raise ValueError(f"format must be 'csr' or 'csc', got {fmt!r}")
@@ -49,11 +51,12 @@ class SparseMatrix:
 
     @classmethod
     def from_scipy(
-        cls, mat, fmt: Optional[str] = None, dtype=None, device="cpu"
+        cls, mat, fmt: Optional[str] = None, dtype=None, device="cuda"
     ) -> "SparseMatrix":
         """Build from any scipy.sparse matrix. ``fmt`` selects the major
         layout ('csr' default, 'csc' for CSC inputs); float64 values stay
-        float64, integer values become float32."""
+        float64, integer values become float32. ``device`` is where its
+        engines run: the card unless the caller names another."""
 
         import scipy.sparse as sp
 

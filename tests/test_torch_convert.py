@@ -96,7 +96,7 @@ def test_csr_transpose():
 def test_matrix_row_layout_matches(fmt):
     X = cluster_counts(200, 90, seed=1).astype(np.float32)
     X = X.tocsc() if fmt == "csc" else X
-    m, jm = SparseMatrix.from_scipy(X), JMatrix.from_scipy(X)
+    m, jm = SparseMatrix.from_scipy(X, device="cpu"), JMatrix.from_scipy(X)
     assert m.format == jm.format == fmt
     assert m.shape == jm.shape and m.nnz == jm.nnz
     assert m.dtype == torch.float32 and m.device == torch.device("cpu")
@@ -120,19 +120,19 @@ def test_matrix_row_layout_matches(fmt):
 def test_value_gates(values, bf16, i8):
     X = make_random_csr(80, 60, density=0.2, seed=6, dtype=np.float32)
     X.data = values(X.data).astype(np.float32)
-    m, jm = SparseMatrix.from_scipy(X), JMatrix.from_scipy(X)
+    m, jm = SparseMatrix.from_scipy(X, device="cpu"), JMatrix.from_scipy(X)
     assert m.values_bf16_exact() == jm.values_bf16_exact() == bf16
     assert m.values_int8_exact() == jm.values_int8_exact() == i8
 
 
 def test_from_scipy_dtypes():
     X = make_random_csr(30, 20, seed=7)  # float64
-    assert SparseMatrix.from_scipy(X).dtype == torch.float64
-    assert SparseMatrix.from_scipy(X, dtype=np.float32).dtype == torch.float32
+    assert SparseMatrix.from_scipy(X, device="cpu").dtype == torch.float64
+    assert SparseMatrix.from_scipy(X, dtype=np.float32, device="cpu").dtype == torch.float32
     Xi = sp.csr_matrix(np.arange(12).reshape(3, 4))
-    assert SparseMatrix.from_scipy(Xi).dtype == torch.float32
+    assert SparseMatrix.from_scipy(Xi, device="cpu").dtype == torch.float32
     with pytest.raises(TypeError):
-        SparseMatrix.from_scipy(X, dtype=np.int32)
+        SparseMatrix.from_scipy(X, dtype=np.int32, device="cpu")
     m = SparseMatrix.from_scipy(X, device="cuda")  # a device is a name here
     assert m.device.type == "cuda"
 

@@ -25,7 +25,7 @@ from tests.conftest import cluster_counts
 def both(X):
     """(port engine, JAX engine) of one scipy matrix."""
 
-    return (GramPCAEngine.from_matrix(SparseMatrix.from_scipy(X)),
+    return (GramPCAEngine.from_matrix(SparseMatrix.from_scipy(X, device="cpu")),
             jgram.GramPCAEngine.from_matrix(JMatrix.from_scipy(X)))
 
 
@@ -64,7 +64,7 @@ def jax_omega(seed, p, l):
 @pytest.mark.parametrize("fmt", ["csr", "csc"])
 def test_bucket_plan_and_payload_identical(counts, fmt):
     X = counts.tocsc() if fmt == "csc" else counts
-    m, jm = SparseMatrix.from_scipy(X), JMatrix.from_scipy(X)
+    m, jm = SparseMatrix.from_scipy(X, device="cpu"), JMatrix.from_scipy(X)
     for ct in GramPCAEngine.COL_TILES:
         plan, total, slab, nt = GramPCAEngine._bucket_plan(m, ct)
         jplan, jtotal, jslab, jnt = jgram.GramPCAEngine._bucket_plan(jm, ct)
@@ -231,5 +231,6 @@ def test_gram_cached_and_cpu_route(counts):
 
 def test_budget_rule():
     assert GramPCAEngine.hbm_budget_bytes("cpu") == 12 << 30  # JAX's fallback
-    m = SparseMatrix.from_scipy(sp.random(50, 41000, density=0.01, format="csr"))
+    m = SparseMatrix.from_scipy(sp.random(50, 41000, density=0.01, format="csr"),
+                                device="cpu")
     assert not GramPCAEngine.fits(m)  # p > 40960: G alone is too wide

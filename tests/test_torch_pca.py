@@ -37,7 +37,7 @@ def fit_both(X, k=6, random=True, center=True):
           .engine("gram").build())
     jp = (jmodels.SparsePCABuilder().n_components(k).svd_method(jm).center(center)
           .engine("gram").build())
-    T = tp.fit_transform(SparseMatrix.from_scipy(X)).numpy()
+    T = tp.fit_transform(SparseMatrix.from_scipy(X, device="cpu")).numpy()
     Tj = np.asarray(jp.fit_transform(JMatrix.from_scipy(X)))
     return tp, T, jp, Tj
 
@@ -99,7 +99,7 @@ def test_wide_blocked_gram_and_large_solve():
 
 def test_transform_and_inverse(fitted, counts):
     tp, T, jp, _ = fitted
-    m = SparseMatrix.from_scipy(counts)
+    m = SparseMatrix.from_scipy(counts, device="cpu")
     T2 = tp.transform(m).numpy()  # a fresh matrix: builds its own engine
     assert np.abs(T2 - T).max() <= 1e-5 * np.abs(T).max()
     R = tp.inverse_transform(torch.from_numpy(T)).numpy()
@@ -115,7 +115,7 @@ def test_transform_and_inverse(fitted, counts):
 def test_save_load_across_packages(fitted, counts, tmp_path):
     tp, T, jp, _ = fitted
     jp.save(str(tmp_path / "jax_model"))
-    loaded = SparsePCA.load(str(tmp_path / "jax_model"))  # .npz suffix added
+    loaded = SparsePCA.load(str(tmp_path / "jax_model"), device="cpu")  # .npz suffix added
     assert loaded.n_components == 6 and loaded.center
     np.testing.assert_array_equal(loaded.components_.numpy(), np.asarray(jp.components_))
     np.testing.assert_array_equal(loaded.explained_variance_, np.asarray(jp.explained_variance_))
@@ -138,15 +138,15 @@ def test_from_state(fitted, counts):
                  explained_variance=np.asarray(jp.explained_variance_),
                  mean=np.asarray(jp.mean_), total_variance=jp.total_variance_,
                  noise_variance=jp.noise_variance_)
-    model = SparsePCA.from_state(state)
+    model = SparsePCA.from_state(state, device="cpu")
     assert model.n_components == 6
     model.engine = "gram"
-    T2 = model.transform(SparseMatrix.from_scipy(counts)).numpy()
+    T2 = model.transform(SparseMatrix.from_scipy(counts, device="cpu")).numpy()
     assert np.abs(T2 - Tj).max() <= 1e-4 * np.abs(Tj).max()
 
 
 def test_engine_selection(counts):
-    m = SparseMatrix.from_scipy(counts)
+    m = SparseMatrix.from_scipy(counts, device="cpu")
     # on a CPU device 'auto' is 'sparse', as off the TPU in the JAX package
     for engine in ("auto", "sparse", "dense"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -200,9 +200,9 @@ def test_auto_decision_order_on_cuda(monkeypatch, counts, dense_budget, gram_bud
 
     m = SparseMatrix.from_scipy(counts, device="cuda")
     monkeypatch.setattr(tpca.DensifiedOperator, "hbm_budget_bytes",
-                        staticmethod(lambda device="cpu": int(dense_budget)))
+                        staticmethod(lambda device: int(dense_budget)))
     monkeypatch.setattr(tgram.GramPCAEngine, "hbm_budget_bytes",
-                        staticmethod(lambda device="cpu": int(gram_budget)))
+                        staticmethod(lambda device: int(gram_budget)))
     monkeypatch.setattr(tpca.TiledSparseOperator, "payload_bytes",
                         classmethod(lambda cls, mm: 5000))
     built = []
@@ -240,7 +240,7 @@ class _ProjectionProbe:
 
 def test_transform_projects_with_mv_precise(fitted, counts):
     tp, T, _, _ = fitted
-    m = SparseMatrix.from_scipy(counts)
+    m = SparseMatrix.from_scipy(counts, device="cpu")
     probe = _ProjectionProbe(torch.from_numpy(counts.toarray()))
     m._operator_cache["gram"] = probe
     tp.engine = "gram"
@@ -250,7 +250,7 @@ def test_transform_projects_with_mv_precise(fitted, counts):
 
 
 def test_lanczos_on_tiled_names_its_roadmap_item(counts):
-    m = SparseMatrix.from_scipy(counts)
+    m = SparseMatrix.from_scipy(counts, device="cpu")
     for block in (None, 4):
         pca = (SparsePCABuilder().n_components(3).svd_method(SVDMethod.lanczos())
                .lanczos_block(block).engine("tiled").build())
@@ -283,7 +283,42 @@ def test_lanczos_knobs_warn(counts):
     pca = (SparsePCABuilder().n_components(3).svd_method(SVDMethod.lanczos())
            .lanczos_steps(32).engine("gram").build())
     with pytest.warns(UserWarning, match="lanczos_steps"):
-        pca.fit(SparseMatrix.from_scipy(counts))
+        pca.fit(SparseMatrix.from_scipy(counts, device="cpu"))
+
+
+def test_default_device_is_the_card(counts):
+    assert SparseMatrix.from_scipy(counts).device.type == "cuda"
+    assert SparseMatrix.from_scipy(counts, device="cpu").device.type == "cpu"
+    assert tpca._as_matrix(counts).device.type == "cuda"
+
+
+def test_default_fit_runs_on_the_card_or_raises(counts, monkeypatch):
+    """A scipy input goes to the card; without one the fit raises instead
+    of running on the CPU. On a card this small matrix's dense form fits,
+    so 'auto' names the unported dense engine; with the dense budget at 0
+    it takes the Gram engine there (the card run of this check is
+    ``tests/test_torch_card.py``, which imports no JAX)."""
+
+    pca = (SparsePCABuilder().n_components(3)
+           .svd_method(SVDMethod.random(10, 7, PIN.QR)).build())
+    if torch.cuda.is_available():
+        with pytest.raises(NotImplementedError, match="'dense'.*ROADMAP"):
+            pca.fit_transform(counts)
+        monkeypatch.setattr(tpca.DensifiedOperator, "hbm_budget_bytes",
+                            staticmethod(lambda device: 0))
+        assert pca.fit_transform(counts).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            pca.fit_transform(counts)
+
+
+@pytest.mark.parametrize("engine", ["gram", "tiled"])
+def test_cpu_device_runs_both_engines(counts, engine):
+    m = SparseMatrix.from_scipy(counts, device="cpu")
+    T = (SparsePCABuilder().n_components(3).engine(engine)
+         .svd_method(SVDMethod.random(10, 7, PIN.QR)).build().fit_transform(m))
+    assert T.device.type == "cpu" and T.shape == (600, 3)
+    assert m._operator_cache[engine].device.type == "cpu"
 
 
 def test_port_imports_no_jax():
@@ -291,7 +326,7 @@ def test_port_imports_no_jax():
         "import sys, numpy as np, scipy.sparse as sp\n"
         "import single_algebra_tpu_torch as t\n"
         "X = sp.random(300, 40, density=0.2, format='csr', random_state=0)\n"
-        "m = t.SparseMatrix.from_scipy(X)\n"
+        "m = t.SparseMatrix.from_scipy(X, device='cpu')\n"
         "T = t.SparsePCABuilder().n_components(3).engine('gram').build().fit_transform(m)\n"
         "assert T.shape == (300, 3)\n"
         "bad = sorted(k for k in sys.modules if k in ('jax', 'single_algebra_tpu')\n"

@@ -179,6 +179,83 @@ def test_kernels_reject_bad_arguments(fn, kw, err):
         f(vals, ids, operand(14, kp, width, "f32"), **args)
 
 
+@pytest.mark.parametrize("ct", [128, 256, 512, 1024])
+@pytest.mark.parametrize("pdt", ["bf16", "f32"])
+@pytest.mark.parametrize("odt", ["bf16", "f32"])
+def test_launch_plans_fit_shared_memory(ct, pdt, odt):
+    """Every kp the kernels take gets a plan within the card's 232,448
+    bytes of shared memory, for wt 8..64."""
+
+    from single_algebra_tpu_torch.ops import spmm_kernel as sk
+
+    p, o = DTYPES[pdt], DTYPES[odt]
+    for kp in range(8, 257, 8):
+        for wt in (8, 16, 24, 64):
+            plan = sk._spmm_plan(wt, ct, kp, p, o)
+            assert plan.smem <= 232_448 and plan.rows % 32 == 0 and plan.stages >= 2
+            assert plan.kc * -(-kp // plan.kc) >= kp and plan.slots <= wt
+        rplan = sk._rmv_plan(500_736, kp, 237, ct, p, o)
+        assert rplan.smem <= 232_448 and rplan.rows % 256 == 0
+        assert rplan.chunks * rplan.kc >= kp and rplan.col_groups * 256 >= ct
+        assert rplan.nranges * rplan.rows >= 500_736 > (rplan.nranges - 1) * rplan.rows
+
+
+@pytest.mark.parametrize("kp, ct", [(12, 256), (0, 256), (64, 1025), (64, 0)])
+def test_launch_plans_refuse_what_the_kernels_cannot_take(kp, ct):
+    from single_algebra_tpu_torch.ops import spmm_kernel as sk
+
+    with pytest.raises(ValueError):
+        sk._spmm_plan(16, ct, kp, torch.bfloat16, torch.bfloat16)
+    with pytest.raises(ValueError):
+        sk._rmv_plan(1024, kp, 4, ct)
+
+
+def unswizzled(x, r, k):
+    """Element k of row r of a swizzled operand block: unit u of row r
+    lies at unit u ^ (r & m), m = min(units per row, 8) - 1."""
+
+    per = 16 // x.element_size()
+    m = min(x.shape[-1] // per, 8) - 1
+    return ((k // per) ^ (r & m)) * per + k % per
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("kc", [16, 32, 64])
+def test_spmm_operand_layout_is_plain_indexing(dt, kc):
+    from single_algebra_tpu_torch.ops import spmm_kernel as sk
+
+    kp, ntiles, ct = 56, 3, 24
+    Bt = operand(30, kp, ntiles * ct, dt)
+    lay = sk._spmm_operand(Bt, ntiles, ct, kc)
+    nch = -(-kp // kc)
+    assert lay.shape == (nch, ntiles, ct, kc) and lay.dtype == Bt.dtype and lay.is_contiguous()
+    ch, t, c, k = np.meshgrid(np.arange(nch), np.arange(ntiles), np.arange(ct), np.arange(kc),
+                              indexing="ij")
+    got = lay[ch, t, c, unswizzled(lay, c, k)]
+    row = ch * kc + k
+    want = torch.where(torch.from_numpy(row < kp),
+                       Bt[np.minimum(row, kp - 1), t * ct + c], torch.zeros((), dtype=Bt.dtype))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+@pytest.mark.parametrize("kc", [32, 64])
+def test_rmv_operand_layout_is_plain_indexing(dt, kc):
+    from single_algebra_tpu_torch.ops import spmm_kernel as sk
+
+    kp, R = 40, 72
+    Ct = operand(31, kp, R, dt)
+    lay = sk._rmv_operand(Ct, kc)
+    nch = -(-kp // kc)
+    assert lay.shape == (nch, R, kc) and lay.dtype == Ct.dtype and lay.is_contiguous()
+    ch, r, k = np.meshgrid(np.arange(nch), np.arange(R), np.arange(kc), indexing="ij")
+    got = lay[ch, r, unswizzled(lay, r, k)]
+    row = ch * kc + k
+    want = torch.where(torch.from_numpy(row < kp), Ct[np.minimum(row, kp - 1), r],
+                       torch.zeros((), dtype=Ct.dtype))
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("blocked", [False, True])
 def test_ell_spmm_matches_jax(monkeypatch, blocked):
     import jax.numpy as jnp
@@ -218,6 +295,11 @@ CUDA_CASES = [  # (payload, operand, wt, kp)
     ("f32", "f32", 24, 64),
     ("bf16", "bf16", 16, 16),
     ("f32", "bf16", 8, 40),
+    ("bf16", "bf16", 8, 8),
+    ("bf16", "f32", 16, 56),
+    ("f32", "f32", 8, 128),
+    ("bf16", "bf16", 24, 128),
+    ("f32", "bf16", 16, 56),
 ]
 
 
@@ -254,7 +336,7 @@ def test_cuda_rmv_many_ranges(cuda):
     vals, ids, Ct = vals.to(cuda), ids.to(cuda), Ct.to(cuda)
     from single_algebra_tpu_torch.ops.spmm_kernel import _rmv_plan
 
-    assert _rmv_plan(R, 64, ntiles, ct)[2] > 1
+    assert _rmv_plan(R, 64, ntiles, ct).nranges > 1
     kw = dict(wt=wt, ntiles=ntiles, col_tile=ct)
     got = tiled_ell_rmv_t(vals, ids, Ct, **kw)
     want = tiled_ell_rmv_t_plain(vals, ids, Ct, **kw)
@@ -275,6 +357,9 @@ def test_cuda_kernels_refuse_what_they_do_not_take(cuda):
         tiled_ell_spmm_t(vals, ids, operand(23, 128, 8, "f32").to(cuda).T, **kw)
     with pytest.raises(ValueError):  # payload on the card, operand on the host
         tiled_ell_rmv_t(vals, ids, operand(24, 8, 256, "f32"), **kw)
+    with pytest.raises(ValueError):  # R not a multiple of 8: no 16-byte row copies
+        v, i = payload(26, 2, 8, 260, 64)
+        tiled_ell_spmm_t(v.to(cuda), i.to(cuda), Bt, **dict(kw, block_rows=4))
 
 
 @pytest.mark.requires_cuda
@@ -293,7 +378,7 @@ def test_cuda_operator_matches_cpu_operator(cuda):
     for r in (10, 211, 400, 401, 402):  # heavy rows: overflow entries
         X[r, 100:600] = rng.random(500)
     X = X.tocsr().astype(np.float32)
-    cpu = TiledSparseOperator.from_matrix(SparseMatrix.from_scipy(X))
+    cpu = TiledSparseOperator.from_matrix(SparseMatrix.from_scipy(X, device="cpu"))
     gpu = TiledSparseOperator.from_matrix(SparseMatrix.from_scipy(X, device=cuda))
     assert gpu.tdata_lo is not None and min(gpu.meta[4:]) > 0
     B = torch.from_numpy(rng.standard_normal((700, 60)).astype(np.float32))

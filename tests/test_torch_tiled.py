@@ -53,7 +53,7 @@ CASES = {
 
 
 def both(X):
-    return (TiledSparseOperator.from_matrix(SparseMatrix.from_scipy(X)),
+    return (TiledSparseOperator.from_matrix(SparseMatrix.from_scipy(X, device="cpu")),
             JTiled.from_matrix(JMatrix.from_scipy(X)))
 
 
@@ -83,7 +83,7 @@ def test_host_payload_matches_jax_bit_for_bit(case):
 
 def test_split_in_chunks_is_the_same(monkeypatch):
     X = heavy(2, values="frac")
-    td = torch.from_numpy(TiledSparseOperator.build_host(SparseMatrix.from_scipy(X))[0])
+    td = torch.from_numpy(TiledSparseOperator.build_host(SparseMatrix.from_scipy(X, device="cpu"))[0])
     hi, lo = TiledSparseOperator._split_payload(td, 8)
     monkeypatch.setattr(TiledSparseOperator, "_SPLIT_CHUNK", 3 * td.shape[1])
     hi2, lo2 = TiledSparseOperator._split_payload(td, 8)
@@ -164,7 +164,7 @@ def test_float64_matrix_matches_jax_float64():
 @pytest.mark.parametrize("case", ["counts", "wide"])
 def test_payload_bytes_and_fits_match_jax(case):
     X = heavy(9, **CASES[case])
-    m, jm = SparseMatrix.from_scipy(X), JMatrix.from_scipy(X)
+    m, jm = SparseMatrix.from_scipy(X, device="cpu"), JMatrix.from_scipy(X)
     b = TiledSparseOperator.payload_bytes(m)
     assert b == JTiled.payload_bytes(jm)
     assert TiledSparseOperator.fits(m) == JTiled.fits(jm)
@@ -209,7 +209,7 @@ def test_sparse_pca_tiled_matches_exact_pca():
     k = 5
     pca = (SparsePCABuilder().n_components(k).svd_method(SVDMethod.random(10, 7, PIN.QR))
            .engine("tiled").build())
-    m = SparseMatrix.from_scipy(X)
+    m = SparseMatrix.from_scipy(X, device="cpu")
     T = pca.fit_transform(m)
     assert isinstance(m._operator_cache["tiled"], TiledSparseOperator)
     D = X.toarray().astype(np.float64)
