@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py    # ~10 minutes: the north star, then the tiled path
+    python3 chip_smoke.py    # ~10 minutes: north star, densified path, tiled path
 
 Phases, one JSON line each:
 
@@ -12,10 +12,15 @@ Phases, one JSON line each:
 2. ``build``: every kernel library compiled from
    ``single_algebra_tpu_torch/csrc`` (one ``nvcc -Xptxas -v`` per source,
    all started together), with the time and the ptxas report per kernel.
-3. ``kernel``: the densify kernel against its plain PyTorch version on the
-   card at the Gram path's slab shapes (slab 8192, col_tile 256, 30,720
-   dense rows, wt 8 and 16, plus a slab with duplicate ids) for int8, bf16
-   and f32 outputs: they must be EXACTLY equal. Times from CUDA events.
+3. ``kernel``: the densify kernel against its plain PyTorch version AND
+   against the one-warp kernel (the port's first densify kernel), which
+   must all agree bit for bit: small cases (wt 4, 8 and 16, duplicate
+   ids, ids outside the tile, a slab at a non-zero offset that is not a
+   whole number of blocks, col_tile 256 and 128), then the Gram path's
+   slab shapes (slab 8192, col_tile 256, 30,720 dense rows, wt 8 and 16,
+   plus a slab with duplicate ids) for int8, bf16 and f32 outputs, each
+   timed (CUDA events) beside the one-warp kernel, the plain version and
+   its bound.
 4. ``gram_tiers``: the int8, bf16 and f32 Gram tiers (blocked path) on the
    card against a float64 host Gram.
 5. ``main_path``: the north star. ``SparsePCABuilder().n_components(50)
@@ -33,31 +38,56 @@ Phases, one JSON line each:
 6. ``breakdown``: the warm layers one by one (CUDA events), and ``idle``:
    the device idle share of the Gram pass and of a warm ``fit_transform``
    from one ``torch.profiler`` window each.
-7. ``kernel_spmm`` / ``kernel_rmv``: the tiled engine's kernels against
+7. ``dense_path``: the densified engine. ``SparsePCABuilder``'s DEFAULTS,
+   ``SparsePCABuilder().n_components(50).build().fit_transform(X)``
+   (Lanczos, adaptive, tolerance 1e-6), with engine 'auto' on a 400,000 x
+   30,000 count matrix (dense bf16 24 GB <= 0.6 x 80 GB), cold and warm;
+   ``lanczos_block(8)``; the randomized method cold and warm. The engine
+   must be ``DensifiedOperator``. ``dense_products``: its products timed
+   at 1, 8 and 50 operand columns and held to a float64 product (precise
+   class: 1e-6). ``dense_idle``: the device idle share of a warm default
+   fit. ``dense_routes``: host densify + upload against upload + scatter
+   on the card, identical payloads. ``dense_ev``: Lanczos never centers
+   the SVD, so the two Lanczos fits are held to the float64 truth of the
+   UNCENTERED Gram's top 50 (fail above 1e-5); the randomized fit, an
+   A-space sketch at q = 7, to a float64 run of the same algorithm with
+   the same sketch (fail above 1e-4), its error against the centered
+   truth reported with no bar. ``dense_lo``: the same counts times a float32
+   constant (200,000 rows): the engine must keep a non-zero lo half, both
+   routes must agree, and the default fit must meet the same bar.
+8. ``kernel_spmm`` / ``kernel_rmv``: the tiled engine's kernels against
    their plain versions on the card, on random payloads of the tiled
    path's tile geometry (R 16,384, 237 tiles of 256 columns, kp 64): wt 16
    bf16 payload x bf16 and x f32 operand, wt 24 f32 x f32, duplicate ids,
    an all-padding row block; and, inside ``tiled_path``, on the engine's
-   own payload at all its 500,736 rows (bf16 x bf16 and bf16 x f32, kp
-   64), whose times go into the kernels line. Each case fails above
-   max |kernel - plain| / max |plain| = 1e-5.
-8. ``tiled_path``: the same builder with engine 'auto' on a 500,000 x
-   60,664 count matrix (all human genes; the dense bf16 form does not fit
-   0.6 x 80 GB and the Gram does not fit p > 40,960), cold and warm. The
-   engine must be ``TiledSparseOperator``, both tiled kernels must have
-   launched, the scores must be finite and [500000, 50]. ``tiled_ev``:
-   the explained variance against a float64 run of the same randomized
-   algorithm with the same sketch (``randomized_svd`` over float64
-   ``torch.sparse_csr_tensor`` products, centered by
+   own payload at all its 500,736 rows (bf16 x bf16 and bf16 x f32 at kp
+   64, whose times go into the kernels line; spmm at kp 56; both at kp 8
+   with a float32 operand, the Lanczos solvers' shape). Each case fails
+   above max |kernel - plain| / max |plain| = 1e-5 or where a repeated
+   launch differs.
+9. ``tiled_path``: the randomized fit with engine 'auto' on a 500,000
+   x 60,664 count matrix (all human genes; the dense bf16 form does not
+   fit 0.6 x 80 GB and the Gram does not fit p > 40,960), cold and warm.
+   The engine must be ``TiledSparseOperator``, both tiled kernels must
+   have launched, the scores must be finite and [500000, 50].
+   ``tiled_ev``: the explained variance against a float64 run of the same
+   randomized algorithm with the same sketch (``randomized_svd`` over
+   float64 ``torch.sparse_csr_tensor`` products, centered by
    ``CenteredOperator``) fails above 1e-4 (max |dEV| / the largest EV);
    the error against the exact float64 truth (dense float64 Gram,
    subspace iteration) is reported with no bar, as is the process's peak
    host memory.
-9. ``tiled_breakdown``: warm CUDA-event times of one ``mv_fast``,
+10. ``tiled_breakdown``: warm CUDA-event times of one ``mv_fast``,
    ``rmv_fast``, ``mv`` and ``rmv`` at kp 64 and of the overflow
    ``ell_spmm`` products, and ``tiled_idle``: the device idle share of a
    warm ``fit_transform``.
-10. ``library``: one PyTorch call per kernel that computes the same
+11. ``tiled_lanczos``: ``SparsePCABuilder``'s defaults and ``lanczos_block(8)`` on
+   the tiled path's matrix and cached engine, each run whole: seconds,
+   steps, kernel launches (counted from 0), and the explained variance
+   against a float64 run of the same recurrence from the same start vector
+   / block over float64 CSR products (fails above 1e-4) and against the
+   float64 truth of the uncentered Gram (reported).
+12. ``library``: one PyTorch call per kernel that computes the same
    function, timed with CUDA events and used nowhere in the port: the
    float32 CSR ``.to_dense()`` of one 8,192-row north-star slab
    (densify), float32 ``torch.sparse_csr_tensor`` products ``X @ B`` and
@@ -93,6 +123,8 @@ TILED_SRC = "single_algebra_tpu_torch/csrc/tiled_ell_spmm.cu"
 N_CELLS, N_GENES, K = 1_000_000, 30_000, 50  # the north star
 TILED_CELLS, TILED_GENES = 500_000, 60_664  # the tiled path: all human genes
 TILED_EV_FAIL = 1e-4  # the tiled phase fails above this EV error vs its f64 twin
+DENSE_CELLS, DENSE_GENES = 400_000, 30_000  # the densified path: dense bf16 24 GB
+DENSE_LO_CELLS = 200_000  # its non-bf16-exact variant: hi + lo, 12 GB each
 KERNEL_REL_FAIL = 1e-5  # spmm / rmv kernel vs plain, relative to max |plain|
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
@@ -177,55 +209,99 @@ def _time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _densify_payload(torch, gen, ntiles, wt, R, ct, *, dup=False, bad=False, frac=False):
+    """A random transposed bucket payload on the card, half its slots
+    padding (0, 0); optionally few distinct ids per group (duplicates),
+    ids outside [0, ct), fractional values."""
+
+    dev = torch.device("cuda")
+    vals = torch.randint(1, 60, (ntiles * wt, R), generator=gen, device=dev).float()
+    if frac:
+        vals = vals + 0.25 * torch.rand(vals.shape, generator=gen, device=dev)
+    ids = torch.randint(0, 4 if dup else ct, (ntiles * wt, R), generator=gen, device=dev)
+    if bad:
+        ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.1] = ct + 3
+        ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.05] = -1
+    pad = torch.rand(vals.shape, generator=gen, device=dev) < 0.5
+    vals[pad] = 0.0
+    ids[pad] = 0
+    return vals, ids.int()
+
+
 def phase_kernel(torch) -> dict:
-    """Kernel vs plain version at the main path's slab shapes."""
+    """The densify kernel (the tile kernel, which the wrapper launches up
+    to wt 16) against its plain version AND against the one-warp kernel
+    (the port's first densify kernel), bit for bit, on small cases: wt 4,
+    8 and 16, duplicate ids, ids outside the tile, a slab at a non-zero
+    offset that is not a whole number of blocks, col_tile 256 and 128.
+    Then the three north-star slab shapes (int8, bf16, f32; 30,720 x 8,192,
+    wt 8 and 16) compared the same way and timed, each with its bound."""
 
     from single_algebra_tpu_torch.ops.densify import (
-        tiled_ell_densify_t, tiled_ell_densify_t_plain,
+        tiled_ell_densify_t, tiled_ell_densify_t_plain, tiled_ell_densify_t_warp,
     )
 
     dev = torch.device("cuda")
-    ntiles, ct, slab = 120, 256, 8192
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    worst, headline = 0.0, None
-    for case, wt in (("wt8", 8), ("wt16", 16), ("dup_ids", 8)):
+    dtypes = (torch.int8, torch.bfloat16, torch.float32)
+
+    def same_bits(a, b):
+        return bool(torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+    def compare(case, vals, ids, out_dtype, kw):
+        got = tiled_ell_densify_t(vals, ids, out_dtype=out_dtype, **kw)
+        warp = tiled_ell_densify_t_warp(vals, ids, out_dtype=out_dtype, **kw)
+        want = tiled_ell_densify_t_plain(vals, ids, out_dtype=out_dtype, **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        line = dict(case=case, out_dtype=str(out_dtype).split(".")[-1], shape=list(got.shape),
+                    equals_plain=same_bits(got, want), equals_warp_kernel=same_bits(got, warp),
+                    warp_kernel_equals_plain=same_bits(warp, want), max_abs_err=err)
+        if not (line["equals_plain"] and line["equals_warp_kernel"]):
+            emit("kernel", **line)
+            raise AssertionError(f"densify kernel differs ({case}, {out_dtype}): {line}")
+        return line
+
+    worst = 0.0
+    small = (  # case, ntiles, wt, ct, payload rows, slab offset, slab rows, dup, bad ids
+        ("wt4", 6, 4, 256, 4096, 0, 2048, False, False),
+        ("wt8_offset_ragged", 6, 8, 256, 4096, 1056, 2976, False, False),
+        ("wt16_dup", 6, 16, 256, 4096, 2048, 2048, True, False),
+        ("wt8_bad_ids", 6, 8, 256, 2048, 0, 2048, False, True),
+        ("wt16_ct128_dup_bad", 9, 16, 128, 2048, 512, 1024, True, True),
+    )
+    for case, ntiles, wt, ct, R, off, rows, dup, bad in small:
+        vals, ids = _densify_payload(torch, gen, ntiles, wt, R, ct, dup=dup, bad=bad, frac=True)
+        kw = dict(wt=wt, ntiles=ntiles, col_tile=ct, row_offset=off, rows=rows)
+        for out_dtype in dtypes:
+            line = compare(case, vals, ids, out_dtype, kw)
+            emit("kernel", wt=wt, col_tile=ct, row_offset=off, **line)
+            worst = max(worst, line["max_abs_err"])
+
+    ntiles, ct, slab = 120, 256, 8192
+    headline = None
+    for case, wt in (("slab_wt8", 8), ("slab_wt16", 16), ("slab_dup_ids", 8)):
         # a bucket payload two slabs wide; the kernel reads the second slab
         # through its offset, as the Gram engine does
-        R = 2 * slab
-        vals = torch.randint(1, 60, (ntiles * wt, R), generator=gen, device=dev).float()
-        if case == "dup_ids":
-            # few distinct ids per group: duplicates must sum in slot order
-            ids = torch.randint(0, 4, (ntiles * wt, R), generator=gen, device=dev)
-            vals = vals + 0.25 * torch.rand(vals.shape, generator=gen, device=dev)
-        else:
-            ids = torch.randint(0, ct, (ntiles * wt, R), generator=gen, device=dev)
-        pad = torch.rand(vals.shape, generator=gen, device=dev) < 0.5
-        vals[pad] = 0.0  # padding slots are (0, 0)
-        ids[pad] = 0
-        ids = ids.int()
-        for out_dtype in (torch.int8, torch.bfloat16, torch.float32):
-            kw = dict(wt=wt, ntiles=ntiles, col_tile=ct, out_dtype=out_dtype,
-                      row_offset=slab, rows=slab)
-            got = tiled_ell_densify_t(vals, ids, **kw)
-            want = tiled_ell_densify_t_plain(vals, ids, **kw)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            equal = bool(torch.equal(got, want))
-            ms = _time_ms(torch, lambda: tiled_ell_densify_t(vals, ids, **kw), 20)
-            plain_ms = _time_ms(torch, lambda: tiled_ell_densify_t_plain(vals, ids, **kw), 3)
-            moved = got.numel() * got.element_size() + ntiles * wt * slab * 8
-            emit(
-                "kernel", case=case, wt=wt, out_dtype=str(out_dtype).split(".")[-1],
-                shape=list(got.shape), equal=equal, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, hbm_gb_per_s=moved / ms / 1e6,
-            )
-            if not equal:
-                raise AssertionError(f"densify kernel != plain ({case}, {out_dtype})")
-            worst = max(worst, err)
-            if case == "wt8" and out_dtype == torch.int8:
-                headline = dict(ms=ms, plain_ms=plain_ms, **bound(moved))
-            del got, want
+        vals, ids = _densify_payload(torch, gen, ntiles, wt, 2 * slab, ct,
+                                     dup=case == "slab_dup_ids", frac=case == "slab_dup_ids")
+        kw = dict(wt=wt, ntiles=ntiles, col_tile=ct, row_offset=slab, rows=slab)
+        for out_dtype in dtypes:
+            line = compare(case, vals, ids, out_dtype, kw)
+            ms = _time_ms(torch, lambda: tiled_ell_densify_t(vals, ids, out_dtype=out_dtype, **kw), 20)
+            warp_ms = _time_ms(
+                torch, lambda: tiled_ell_densify_t_warp(vals, ids, out_dtype=out_dtype, **kw), 20)
+            plain_ms = _time_ms(
+                torch, lambda: tiled_ell_densify_t_plain(vals, ids, out_dtype=out_dtype, **kw), 3)
+            item = torch.empty((), dtype=out_dtype).element_size()
+            moved = ntiles * ct * slab * item + ntiles * wt * slab * 8
+            bd = bound(moved)
+            emit("kernel", wt=wt, ms=ms, warp_kernel_ms=warp_ms, plain_ms=plain_ms,
+                 share_of_bound=bd["bound_ms"] / ms, hbm_gb_per_s=moved / ms / 1e6, **bd, **line)
+            worst = max(worst, line["max_abs_err"])
+            if case == "slab_wt8" and out_dtype == torch.int8:
+                headline = dict(ms=ms, plain_ms=plain_ms, **bd)
     return dict(max_abs_err=worst, **headline)
 
 
@@ -262,13 +338,9 @@ def phase_gram_tiers(torch) -> None:
             raise AssertionError(f"{tier} Gram rel err {rel} > {limit}")
 
 
-def f64_truth_ev(torch, X, k: int, chunk: int = 4096, device="cuda"):
-    """Top-k explained variances of the centered matrix in float64, on the
-    card and independent of the port: the dense float64 Gram of CSR row
-    chunks, centered, then float64 subspace iteration on it with a
-    Rayleigh-Ritz step (``eigvalsh`` of the projected Gram) until the
-    Ritz values stop moving (cuSOLVER's ``eigvalsh`` refuses the whole
-    30,000-wide Gram)."""
+def f64_gram(torch, X, chunk: int = 4096, device="cuda"):
+    """(G, mu): the dense float64 Gram ``X^T X`` of CSR row chunks and the
+    column means, on the card and independent of the port."""
 
     import numpy as np
 
@@ -288,14 +360,21 @@ def f64_truth_ev(torch, X, k: int, chunk: int = 4096, device="cuda"):
         D.index_put_((rows, cols), vals, accumulate=True)
         G.addmm_(D.T, D)
         colsum += D.sum(dim=0)
-    del dense
-    mu = colsum / n
-    G.addr_(mu, mu, alpha=-n)  # in place: no [p, p] temporaries
+    return G, colsum / n
 
+
+def f64_topk(torch, G, k: int):
+    """Top-k eigenvalues of the PSD float64 ``G``: subspace iteration with
+    a Rayleigh-Ritz step (``eigvalsh`` of the projected matrix) until the
+    Ritz values stop moving (cuSOLVER's ``eigvalsh`` refuses a whole
+    30,000-wide matrix); -> (values, iterations)."""
+
+    p = G.shape[0]
     b = min(2 * k + 28, p)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device=G.device)
     gen.manual_seed(1)
-    Q = torch.linalg.qr(torch.randn((p, b), generator=gen, dtype=torch.float64, device=dev))[0]
+    Q = torch.linalg.qr(torch.randn((p, b), generator=gen, dtype=torch.float64,
+                                    device=G.device))[0]
     Z, prev = G @ Q, None
     for it in range(500):
         Q = torch.linalg.qr(Z)[0]
@@ -304,15 +383,35 @@ def f64_truth_ev(torch, X, k: int, chunk: int = 4096, device="cuda"):
         if prev is not None and float(((ritz - prev).abs() / ritz[0]).max()) < 1e-13:
             break
         prev = ritz
-    return (ritz / (n - 1)).cpu().numpy(), it + 1
+    return ritz, it + 1
+
+
+def f64_truth_ev(torch, X, k: int, chunk: int = 4096, device="cuda", uncentered=False):
+    """Top-k explained variances in float64 from the dense float64 Gram:
+    of the centered matrix -> (ev, iterations), or with ``uncentered`` of
+    both the raw matrix (what the Lanczos method solves: s^2 / (n - 1))
+    and the centered one, from one Gram -> (ev_raw, ev_centered,
+    iterations of each)."""
+
+    n = X.shape[0]
+    G, mu = f64_gram(torch, X, chunk, device)
+    raw = f64_topk(torch, G, k) if uncentered else None
+    G.addr_(mu, mu, alpha=-n)  # centered in place: no [p, p] temporaries
+    ritz, iters = f64_topk(torch, G, k)
+    ev = (ritz / (n - 1)).cpu().numpy()
+    if not uncentered:
+        return ev, iters
+    return (raw[0] / (n - 1)).cpu().numpy(), ev, (raw[1], iters)
 
 
 def phase_breakdown(torch, eng, pca, k: int) -> None:
     """Where a full pass goes on the card (warm, CUDA events): the densify
-    kernel alone over every slab, the whole Gram pass (densify + int8/bf16/
-    f32 contraction), the p-space solve and the projection pass."""
+    kernel alone over every slab (and the one-warp kernel over the same
+    slabs), the whole Gram pass (densify + int8/bf16/f32 contraction), the
+    p-space solve and the projection pass."""
 
     from single_algebra_tpu_torch.linalg import gram as g
+    from single_algebra_tpu_torch.ops.densify import tiled_ell_densify_t_warp
 
     slab = g._slab_for(eng.shape[0])
     exact, i8 = eng.meta[3], eng.meta[4]
@@ -332,6 +431,14 @@ def phase_breakdown(torch, eng, pca, k: int) -> None:
         for b, i in slabs:
             eng._densify(b, i, dtype)  # each slab is dropped before the next
 
+    def densify_all_warp_kernel(dtype):
+        # the same slabs through the one-warp kernel (the port's first
+        # densify kernel), for a comparison inside one run
+        for b, i in slabs:
+            tiled_ell_densify_t_warp(
+                eng.bdata[b], eng.blocal[b], wt=eng.bwidths[b][0], ntiles=eng.meta[1],
+                col_tile=eng.meta[2], out_dtype=dtype, row_offset=i * slab, rows=slab)
+
     densify_s, _ = timed(lambda: densify_all(out_dtype))
     gram_s, G = timed(lambda: g.gram_matrix(eng))
     mean = pca._mean_device()
@@ -342,9 +449,12 @@ def phase_breakdown(torch, eng, pca, k: int) -> None:
     Vp[: vt.shape[1]] = vt.T
     project_s, _ = timed(lambda: eng._project_bucketed(Vp))
     project_densify_s, _ = timed(lambda: densify_all(torch.float32))
+    warp_s, _ = timed(lambda: densify_all_warp_kernel(out_dtype))
+    warp_f32_s, _ = timed(lambda: densify_all_warp_kernel(torch.float32))
     emit("breakdown", slabs=len(slabs), densify_gram_dtype_s=densify_s,
          gram_pass_s=gram_s, solve_s=solve_s, projection_pass_s=project_s,
-         densify_f32_s=project_densify_s)
+         densify_f32_s=project_densify_s, densify_gram_dtype_warp_kernel_s=warp_s,
+         densify_f32_warp_kernel_s=warp_f32_s)
 
 
 def device_idle(torch, fn, top: int = 0) -> dict:
@@ -480,6 +590,197 @@ def phase_main_path(torch) -> tuple:
     if not ev_rel_err <= EV_FAIL:
         raise AssertionError(f"EV rel err {ev_rel_err} > {EV_FAIL}")
     return launches, library_densify_ms(torch, X)
+
+
+def _ev_rel_err(ev, ev_true) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(ev, np.float64) - ev_true).max() / ev_true[0])
+
+
+def phase_dense_products(torch, op) -> None:
+    """Warm CUDA-event times of the densified engine's products at 1, 8
+    and 50 operand columns, their error against a float64 product of the
+    first 8,192 rows, and one raw cuBLAS call on the unpadded 3-column
+    stacked operand of a single-column precise product (the wrapper pads
+    it to 8 columns)."""
+
+    from single_algebra_tpu_torch.linalg.operators import bf16_terms
+
+    n, p = op.shape
+    gen = torch.Generator(device=op.device)
+    gen.manual_seed(8)
+    for k in (1, 8, 50):
+        B = torch.randn((p, k), generator=gen, device=op.device)
+        C = torch.randn((n, k), generator=gen, device=op.device)
+        times = {name: _time_ms(torch, lambda f=getattr(op, name), a=arg: f(a), 3)
+                 for name, arg in (("mv", B), ("rmv", C), ("mv_precise", B), ("rmv_precise", C))}
+        ref = op.hi[:8192].double() @ B.double()
+        if op.lo is not None:
+            ref += op.lo[:8192].double() @ B.double()
+        scale = float(ref.abs().max())
+        line = dict(k=k, ms=times,
+                    mv_rel_err=float((op.mv(B)[:8192].double() - ref).abs().max()) / scale,
+                    mv_precise_rel_err=float(
+                        (op.mv_precise(B)[:8192].double() - ref).abs().max()) / scale)
+        if k == 1:
+            stacked = torch.cat(bf16_terms(B), dim=1)  # [p, 3]
+            line["mv_precise_unpadded_3col_ms"] = _time_ms(
+                torch, lambda: torch.mm(op.hi, stacked, out_dtype=torch.float32), 3)
+        emit("dense_products", **line)
+        if not line["mv_precise_rel_err"] <= 1e-6:
+            raise AssertionError(f"dense mv_precise rel err {line['mv_precise_rel_err']} > 1e-6")
+
+
+def phase_dense_path(torch) -> None:
+    """The densified engine's path once, through the user-facing entry
+    points, at 400,000 x 30,000: 'auto' must build ``DensifiedOperator``.
+    (a) ``SparsePCABuilder``'s defaults (Lanczos, adaptive, tolerance 1e-6), cold
+    and warm; (c) ``lanczos_block(8)``; both construction routes give one
+    payload; (b) ``SVDMethod.random(10, 7, QR)`` cold (a fresh matrix) and
+    warm. Lanczos solves the RAW matrix, so (a) and (c) are held to the
+    float64 truth of the uncentered Gram, failing above 1e-5. (b) is an
+    A-space sketch at q = 7, which does not resolve the planted tail to
+    that bar in any arithmetic: as on the tiled path it is held to a
+    float64 run of the same algorithm with the same sketch (1e-4), and its
+    error against the centered truth is reported. Then the non-bf16-exact variant (the counts
+    times 1.2345, 200,000 rows): the engine must keep its lo half and
+    meet the same bar."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from benchmarks._datagen import cluster_counts_big
+    from single_algebra_tpu_torch import SparseMatrix, SparsePCABuilder
+    from single_algebra_tpu_torch.linalg.operators import CenteredOperator, DensifiedOperator
+    from single_algebra_tpu_torch.linalg.svd import gaussian_sketch, randomized_svd
+    from single_algebra_tpu_torch.models.pca import _host_col_stats
+    from single_algebra_tpu_torch.types import PowerIterationNormalizer, SVDMethod
+
+    n, p, k = DENSE_CELLS, DENSE_GENES, K
+    t0 = time.perf_counter()
+    X = cluster_counts_big(n, p, n_clusters=64, seed=7, density=0.01)
+    gen_s = time.perf_counter() - t0
+
+    def fit(make, m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pca = make.build()
+        T = pca.fit_transform(m)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if tuple(T.shape) != (m.shape[0], k) or not bool(torch.isfinite(T).all()):
+            raise AssertionError(f"scores: shape {tuple(T.shape)}, not finite or misshapen")
+        return pca, T, seconds
+
+    def default():
+        return SparsePCABuilder().n_components(k)
+
+    def randomized():
+        return default().svd_method(SVDMethod.random(10, 7, PowerIterationNormalizer.QR))
+
+    t0 = time.perf_counter()
+    m = SparseMatrix.from_scipy(X, device="cuda")
+    from_scipy_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    pca_a, T_a, cold_a = fit(default(), m)
+    peak = torch.cuda.max_memory_allocated()
+    op = m._operator_cache.get("auto")
+    if not isinstance(op, DensifiedOperator):
+        raise AssertionError(f"engine 'auto' built {type(op).__name__}, not DensifiedOperator")
+    pca_a2, T_a2, warm_a = fit(default(), m)
+    warm_vs_cold = float((T_a2 - T_a).abs().max() / T_a.abs().max())
+    del T_a, T_a2
+    pca_c, _, warm_c = fit(default().lanczos_block(8), m)
+    emit("dense_path", engine_requested="auto", engine=type(op).__name__, n=n, p=p, nnz=m.nnz,
+         gen_s=gen_s, from_scipy_s=from_scipy_s, lo_present=op.lo is not None,
+         payload_gb=op.hi.numel() * 2 / 1e9, engine_build_s=op.build_seconds,
+         default_builder=dict(cold_fit_transform_s=cold_a, warm_fit_transform_s=warm_a,
+                              lanczos_steps=pca_a.lanczos_steps_taken_,
+                              fit_timings_cold=pca_a._fit_timings, warm_vs_cold_rel=warm_vs_cold),
+         lanczos_block_8=dict(warm_fit_transform_s=warm_c, block_steps=pca_c.lanczos_steps_taken_),
+         peak_alloc_gb=peak / 1e9)
+    phase_dense_products(torch, op)
+    emit("dense_idle", default_builder_warm=device_idle(
+        torch, lambda: default().build().fit_transform(m), top=6))
+
+    # the other construction route: host densify + upload of the dense half
+    host = DensifiedOperator.from_matrix(m, device=False)
+    same = bool(torch.equal(host.hi.view(torch.int16), op.hi.view(torch.int16)))
+    emit("dense_routes", device_route_s=op.build_seconds, host_route_s=host.build_seconds,
+         hi_identical=same, lo=[op.lo is None, host.lo is None])
+    if not same or host.lo is not None or op.lo is not None:
+        raise AssertionError("the two construction routes disagree on an exact matrix")
+    del host, op, m
+    torch.cuda.empty_cache()
+
+    # (b) the randomized method, cold on a fresh matrix, then warm
+    m = SparseMatrix.from_scipy(X, device="cuda")
+    pca_b, _, cold_b = fit(randomized(), m)
+    _, _, warm_b = fit(randomized(), m)
+    mu = torch.from_numpy(_host_col_stats(m)[0] / n).to("cuda")
+    del m
+    torch.cuda.empty_cache()
+
+    # (b)'s bar: the same randomized algorithm, the same sketch, float64 products
+    t0 = time.perf_counter()
+    omega = gaussian_sketch(p, k + 10, 42, dtype=torch.float32, device="cuda").double()
+    res = randomized_svd(CenteredOperator(Csr64Operator(torch, X, "cuda"), mu), k, 10, 7,
+                         PowerIterationNormalizer.QR, omega=omega)
+    ev_same = (res.s.double() ** 2 / (n - 1)).cpu().numpy()
+    same_s = time.perf_counter() - t0
+    del res, omega, mu
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ev_raw, ev_centered, iters = f64_truth_ev(torch, X, k, uncentered=True)
+    truth_s = time.perf_counter() - t0
+    errs = dict(default_builder=_ev_rel_err(pca_a.explained_variance_, ev_raw),
+                lanczos_block_8=_ev_rel_err(pca_c.explained_variance_, ev_raw))
+    same_err = _ev_rel_err(pca_b.explained_variance_, ev_same)
+    emit("dense_ev", ev_rel_err_f64_truth_uncentered=errs, ev_target=EV_TARGET,
+         ev_fail_above=EV_FAIL,
+         truth="dense float64 Gram (raw for Lanczos, centered for randomized) + float64 "
+               "subspace iteration", truth_s=truth_s, truth_subspace_iters=list(iters),
+         randomized=dict(cold_fit_transform_s=cold_b, warm_fit_transform_s=warm_b,
+                         ev_rel_err_same_sketch_f64=same_err, fail_above=TILED_EV_FAIL,
+                         same_sketch_f64_s=same_s,
+                         ev_rel_err_f64_truth_centered=_ev_rel_err(
+                             pca_b.explained_variance_, ev_centered)),
+         ev_top3=np.asarray(pca_a.explained_variance_)[:3].tolist(),
+         ev_raw_true_top3=ev_raw[:3].tolist(), ev_centered_true_top3=ev_centered[:3].tolist())
+    if not max(errs.values()) <= EV_FAIL:
+        raise AssertionError(f"dense path Lanczos EV rel err {errs} > {EV_FAIL}")
+    if not same_err <= TILED_EV_FAIL:
+        raise AssertionError(f"dense path randomized EV rel err vs the same-sketch f64 run "
+                             f"{same_err} > {TILED_EV_FAIL}")
+
+    # the non-bf16-exact variant: the same counts times a float32 constant
+    n2 = DENSE_LO_CELLS
+    X2 = X[:n2].tocsr()
+    X2 = sp.csr_matrix((X2.data.astype(np.float32) * np.float32(1.2345), X2.indices, X2.indptr),
+                       shape=X2.shape)
+    del X
+    m = SparseMatrix.from_scipy(X2, device="cuda")
+    pca, _, cold_s = fit(default(), m)
+    op = m._operator_cache.get("auto")
+    if not isinstance(op, DensifiedOperator) or op.lo is None or not bool((op.lo != 0).any()):
+        raise AssertionError("the non-bf16-exact matrix must run on DensifiedOperator with a "
+                             "non-zero lo half")
+    host = DensifiedOperator.from_matrix(m, device=False)
+    same = bool(torch.equal(host.hi.view(torch.int16), op.hi.view(torch.int16))
+                and torch.equal(host.lo.view(torch.int16), op.lo.view(torch.int16)))
+    build_s, host_build_s = op.build_seconds, host.build_seconds
+    del host, op, m
+    torch.cuda.empty_cache()
+    ev_raw2, _, _ = f64_truth_ev(torch, X2, k, uncentered=True)
+    err = _ev_rel_err(pca.explained_variance_, ev_raw2)
+    emit("dense_lo", n=n2, p=p, values="counts x float32(1.2345)", lo_present=True,
+         routes_identical=same, engine_build_s=build_s, host_route_s=host_build_s,
+         cold_fit_transform_s=cold_s, lanczos_steps=pca.lanczos_steps_taken_,
+         ev_rel_err=err, ev_fail_above=EV_FAIL)
+    if not same or not err <= EV_FAIL:
+        raise AssertionError(f"dense lo variant: routes identical={same}, EV rel err {err}")
 
 
 def csr_on_card(torch, M, dtype):
@@ -628,16 +929,19 @@ def phase_kernel_tiled_path(torch, op, result: dict) -> None:
     """spmm and rmv kernels vs their plain versions on the tiled engine's
     own payload, at the shapes the path gives them (all its rows): at kp 64
     the bf16 operand of the power iterations and the float32 operand of
-    the precise products, and spmm at the projection's kp 56 with a float32
+    the precise products, spmm at the projection's kp 56 with a float32
     operand (the one shape whose kp is not a multiple of the kernel's
-    output chunk). The kp 64 bf16 case gives the kernels line its times."""
+    output chunk), and both at kp 8 with a float32 operand (the Lanczos
+    recurrence's single column, and ``lanczos_block(8)``'s block). The kp
+    64 bf16 case gives the kernels line its times."""
 
     wt, ntiles, ct = op.meta[:3]
     gen = torch.Generator(device=op.device)
     gen.manual_seed(4)
     for case, odt, kp, rmv in (("path_bf16_x_bf16", torch.bfloat16, 64, True),
                                ("path_bf16_x_f32", torch.float32, 64, True),
-                               ("path_bf16_x_f32_kp56", torch.float32, 56, False)):
+                               ("path_bf16_x_f32_kp56", torch.float32, 56, False),
+                               ("path_bf16_x_f32_kp8", torch.float32, 8, True)):
         _compare_tiled(torch, result, gen, case, op.tdata, op.tlocal, wt=wt, ntiles=ntiles,
                        ct=ct, kp=kp, odt=odt, plain_reps=1, rmv=rmv)
     for entry in result.values():
@@ -650,8 +954,11 @@ def phase_kernel_tiled_path(torch, op, result: dict) -> None:
     flops = 2.0 * stored * kp
     result["tiled_ell_spmm_t"].update(bound(payload + kp * ntiles * ct * 2 + kp * R * 4, flops))
     result["tiled_ell_rmv_t"].update(bound(payload + kp * R * 2 + ntiles * ct * kp * 4, flops))
+    kp8 = {name: bound(payload + 8 * ntiles * ct * 4 + 8 * R * 4, 2.0 * stored * 8)["bound_ms"]
+           for name in ("spmm", "rmv")}  # float32 operand in, float32 result out
     emit("tiled_bounds", stored=stored, slots=op.tdata.numel(), payload_bytes=payload,
-         spmm=result["tiled_ell_spmm_t"]["bound_ms"], rmv=result["tiled_ell_rmv_t"]["bound_ms"])
+         spmm=result["tiled_ell_spmm_t"]["bound_ms"], rmv=result["tiled_ell_rmv_t"]["bound_ms"],
+         spmm_f32_kp8=kp8["spmm"], rmv_f32_kp8=kp8["rmv"])
 
 
 class Csr64Operator:
@@ -773,6 +1080,7 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     phase_tiled_breakdown(torch, op, ell_spmm)
     emit("tiled_idle", warm_fit_transform=device_idle(
         torch, lambda: builder().build().fit_transform(m), top=8))
+    lanczos = phase_tiled_lanczos(torch, m, k)
     phase_kernel_tiled_path(torch, op, kernel_result)
     for name, ms in library_tiled_ms(torch, X).items():
         kernel_result[name]["library_ms"] = ms
@@ -789,13 +1097,30 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     res = randomized_svd(ref_op, k, 10, 7, PowerIterationNormalizer.QR, omega=omega)
     ev_same = (res.s.double() ** 2 / (n - 1)).cpu().numpy()
     same_s = time.perf_counter() - t0
-    del ref_op, res, omega
+    del res, omega
     torch.cuda.empty_cache()
     same_err = float(np.abs(ev - ev_same).max() / ev_same[0])
+    twins = tiled_lanczos_f64_twins(torch, ref_op.base, lanczos, k)
+    del ref_op
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    ev_true, iters = f64_truth_ev(torch, X, k)
+    ev_raw_true, ev_true, iters = f64_truth_ev(torch, X, k, uncentered=True)
+    iters = iters[1]
     truth_s = time.perf_counter() - t0
+    worst = 0.0
+    for name, run in lanczos.items():
+        same = _ev_rel_err(run["ev"], twins[name]["ev"])
+        worst = max(worst, same)
+        emit("tiled_lanczos", method=name, engine="TiledSparseOperator", n=n, p=p,
+             warm_fit_transform_s=run["seconds"], steps=run["steps"], launches=run["launches"],
+             ev_rel_err_same_start_f64=same, fail_above=TILED_EV_FAIL,
+             same_start_f64_s=twins[name]["seconds"],
+             ev_rel_err_f64_truth_uncentered=_ev_rel_err(run["ev"], ev_raw_true),
+             ev_top3=run["ev"][:3].tolist(), ev_raw_true_top3=ev_raw_true[:3].tolist())
+    if not worst <= TILED_EV_FAIL:
+        raise AssertionError(f"tiled Lanczos EV rel err vs the same-start f64 run {worst} "
+                             f"> {TILED_EV_FAIL}")
     truth_err = float(np.abs(ev - ev_true).max() / ev_true[0])
     emit(
         "tiled_ev", ev_rel_err_same_sketch_f64=same_err, fail_above=TILED_EV_FAIL,
@@ -809,6 +1134,67 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     if not same_err <= TILED_EV_FAIL:
         raise AssertionError(f"tiled EV rel err vs the same-sketch f64 run {same_err} > {TILED_EV_FAIL}")
     return launches
+
+
+def phase_tiled_lanczos(torch, m, k: int) -> dict:
+    """``SparsePCABuilder``'s defaults (scalar Lanczos, adaptive, tolerance 1e-6)
+    and ``lanczos_block(8)`` on the tiled path's matrix and cached engine:
+    seconds, steps, kernel launches, explained variances. Both run whole
+    (to convergence)."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import SparsePCABuilder
+    from single_algebra_tpu_torch.ops import cuda_lib
+
+    runs = {}
+    for name, block in (("default_builder", None), ("lanczos_block_8", 8)):
+        cuda_lib.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pca = SparsePCABuilder().n_components(k).lanczos_block(block).build()
+        T = pca.fit_transform(m)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {kn: cuda_lib.launch_counts[kn] for kn in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")}
+        if tuple(T.shape) != (m.shape[0], k) or not bool(torch.isfinite(T).all()):
+            raise AssertionError(f"tiled Lanczos ({name}) scores: shape {tuple(T.shape)}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"tiled Lanczos ({name}) did not launch both kernels: {launches}")
+        runs[name] = dict(seconds=seconds, steps=pca.lanczos_steps_taken_, launches=launches,
+                          block=block, seed=pca.random_seed,
+                          ev=np.asarray(pca.explained_variance_, np.float64))
+        del T
+    return runs
+
+
+def tiled_lanczos_f64_twins(torch, op64, runs: dict, k: int) -> dict:
+    """The same recurrences in float64 over exact float64 CSR products,
+    from the port's own start vector / block (the seeded float32 draw,
+    widened) and for the steps each port run took -> {name: ev, seconds}."""
+
+    from single_algebra_tpu_torch.linalg.block_lanczos import block_lanczos_svd
+    from single_algebra_tpu_torch.linalg.lanczos import lanczos_svd
+
+    n, p = op64.shape
+    out = {}
+    for name, run in runs.items():
+        gen = torch.Generator(device=op64.device)
+        gen.manual_seed(int(run["seed"]))
+        t0 = time.perf_counter()
+        if run["block"] is None:
+            v0 = torch.randn(p, generator=gen, dtype=torch.float32, device=op64.device)
+            res = lanczos_svd(op64, k, steps=run["steps"], v0=v0.double())
+        else:
+            V1 = torch.linalg.qr(torch.randn((p, run["block"]), generator=gen,
+                                             dtype=torch.float32, device=op64.device))[0]
+            res = block_lanczos_svd(op64, k, block_size=run["block"], steps=run["steps"],
+                                    V1=V1.double())
+        ev = (res.s.double() ** 2 / (n - 1)).cpu().numpy()
+        out[name] = dict(ev=ev, seconds=time.perf_counter() - t0)
+        del res
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_tiled_breakdown(torch, op, ell_spmm) -> None:
@@ -845,6 +1231,8 @@ def main() -> int:
     kern = phase_kernel(torch)
     phase_gram_tiers(torch)
     launches, kern["library_ms"] = phase_main_path(torch)
+    torch.cuda.empty_cache()
+    phase_dense_path(torch)
     torch.cuda.empty_cache()
     tiled_kern = {}
     phase_kernel_tiled(torch, tiled_kern)

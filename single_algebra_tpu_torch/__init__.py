@@ -7,12 +7,14 @@ written by hand for NVIDIA Hopper (``csrc/``), built with ``nvcc`` on
 first use; on CPU tensors each kernel's wrapper runs its plain PyTorch
 version.
 
-Ported so far: the Gram-PCA main path — ``SparseMatrix.from_scipy`` ->
-``make_engine_operator`` -> ``GramPCAEngine`` (densify kernel, Gram
-contraction, p-space solve, projection) -> ``SparsePCA`` — and the tiled
-engine's randomized PCA — ``make_engine_operator`` ->
-``TiledSparseOperator`` (``tiled_ell_spmm_t`` / ``tiled_ell_rmv_t``
-kernels) -> ``randomized_svd`` -> ``SparsePCA``.
+Ported so far: ``SparseMatrix.from_scipy`` -> ``make_engine_operator``
+-> ``SparsePCA`` on three engines. The densified engine
+(``DensifiedOperator``: dense bf16 hi/lo payload, cuBLAS products;
+``auto``'s first choice when the dense form fits), the Gram engine
+(``GramPCAEngine``: densify kernel, Gram contraction, p-space solve,
+projection) and the tiled engine (``TiledSparseOperator``:
+``tiled_ell_spmm_t`` / ``tiled_ell_rmv_t`` kernels), with the randomized,
+Lanczos (``SparsePCABuilder``'s default) and block-Lanczos solvers.
 """
 
 from .types import (  # noqa: F401

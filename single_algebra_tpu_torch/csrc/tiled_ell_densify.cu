@@ -9,30 +9,186 @@
 // out[t*ct + c, r] is the float32 sum, in slot order, of the slab row's
 // values in tile t whose id is c, cast once. The TPU kernel built the same
 // sum as a one-hot compare/select over all ct columns for each slot,
-// because the TPU has no scatter; here each slot is one shared-memory add.
-//
-// Design: a block is one warp and owns one column tile t and 32
-// consecutive slab rows. Thread `lane` owns row r0+lane, i.e. one column
-// of the [ct, 32] accumulator tile in shared memory, so its slots add into
-// it in slot order with no atomics (duplicate ids sum exactly as in the
-// one-hot form; ids outside [0, ct) are dropped, as the one-hot drops
-// them). The finished tile is cast and stored as whole output rows of 32
-// elements with 4-element vector stores, so a warp's store covers four
-// consecutive output rows.
+// because the TPU has no scatter.
 //
 // What bounds it: the write of the dense slab. At the north-star shape
-// (ct=256, ntiles=120, R=8192) one int8 slab is 30,720 x 8,192 = 251 MB
-// written against ~63 MB of payload read (wt=8); f32 slabs write 1 GB.
-// The design keeps that write the only large HBM stream: every payload
-// byte is read once, with coalesced 128-byte warp loads, and the
-// accumulator never leaves shared memory. Keeping the dense slab out of
-// HBM altogether (densify fused into the Gram product) is later work.
+// (ct=256, ntiles=120, R=8192, wt=8) one slab reads 63 MB of payload and
+// writes 251 MB (int8), 503 MB (bf16) or 1007 MB (f32). Nothing is
+// multiplied, so the bound is those bytes over the memory rate.
+//
+// Two kernels live here.
+//
+// densify_tile_kernel (wt <= 16, the shapes the Gram engine's main
+// buckets have). A block is 256 threads and owns one column tile and 256
+// consecutive slab rows; thread i owns row r0+i.
+//   1. The thread loads its row's WT (value, id) slots into registers,
+//      all 2*WT loads issued before the first use (WT is a template
+//      parameter, wt is rounded up to it with the extra slots masked), as
+//      coalesced 128-byte warp loads.
+//   2. In registers it forms, for each slot, the float32 sum in slot
+//      order of the later slots with the same id (WT^2 compares), and
+//      marks the first slot of each id: that slot alone will write, once,
+//      the sum already cast to the output type. So the staging tile is
+//      held in the OUTPUT type (4x smaller than a float32 accumulator for
+//      int8), is never read back as float32, and zero-filling it is the
+//      only pass over it that does not carry output bytes.
+//   3. The tile's ct columns go out in chunks of CC columns through two
+//      16 KB staging buffers [CC][256] in shared memory: zero-fill, the
+//      marked slots scatter their cast sums, then the chunk leaves as
+//      16-byte vector stores, a staged column being 256 consecutive
+//      outputs of one dense row (256 B in int8, 1 KB in float32), so a
+//      warp's store covers whole 128-byte lines. With two buffers a chunk
+//      costs two block barriers and the zero-fill of the next chunk
+//      overlaps the stores of this one. Row groups are the fastest grid
+//      dimension, so blocks that run together write neighbouring pieces
+//      of the same dense rows.
+// 32 KB of shared memory a block leaves room for 6 blocks (48 warps) an
+// SM, each warp with 2*WT loads in flight. Measured on an H100 at the
+// north-star slab: 81-84 % of the byte bound in every output type (the
+// one-warp kernel: 36 %, 62 % and 72 % for int8, bf16 and f32). Bulk
+// asynchronous stores (cp.async.bulk shared -> global) in place of the
+// vector stores, and blocks of 128 rows, gave the same times within 8 %.
+//
+// densify_warp_kernel (any wt; the first version of this port). A block
+// is one warp with a float32 [ct][32] accumulator in shared memory; each
+// slot is one shared-memory add, in slot order; the tile is then read
+// back, cast and stored with 4-element vector stores. It serves buckets
+// wider than 16 slots (rare heavy rows) and is the reference the tile
+// kernel is held to bit for bit.
+//
+// Both drop ids outside [0, ct), sum duplicate ids in slot order in
+// float32 starting from +0, and saturate float -> int8 with NaN -> 0, so
+// they agree bit for bit with each other and with the one-hot form.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// float -> int8 saturates (and maps NaN to 0), as XLA's convert does
+__device__ __forceinline__ signed char to_i8(float x) {
+  int i = __float2int_rz(x);
+  return static_cast<signed char>(max(-128, min(127, i)));
+}
+
+template <typename OutT>
+__device__ __forceinline__ OutT cast_out(float x);
+template <>
+__device__ __forceinline__ float cast_out<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ int8_t cast_out<int8_t>(float x) {
+  return to_i8(x);
+}
+
+constexpr int kBufBytes = 16384;  // one staging buffer; a block has two
+
+constexpr int kTileRows = 256;  // slab rows (and threads) per block
+
+template <typename OutT, int WT>
+__global__ void __launch_bounds__(kTileRows)
+    densify_tile_kernel(const float* __restrict__ tdata, const int32_t* __restrict__ tlocal,
+                        OutT* __restrict__ out, long long ld, long long row_offset, int R,
+                        int wt, int ct) {
+  constexpr int RB = kTileRows;
+  constexpr int CC = kBufBytes / (RB * (int)sizeof(OutT));  // columns staged per chunk
+  constexpr int V = RB * (int)sizeof(OutT) / 16;  // 16-byte vectors a staged column
+  constexpr int kVecs = kBufBytes / 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t = blockIdx.y;
+  const int r0 = blockIdx.x * RB;
+  const int tid = threadIdx.x;
+  const int valid = min(RB, R - r0);  // a multiple of 32
+
+  // 1. this row's slots of tile t: every load issued before the first use
+  float v[WT];
+  int id[WT];
+  const long long base = (long long)t * wt * ld + row_offset + r0 + tid;
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+    const bool live = w < wt && tid < valid;
+    const long long at = base + (long long)w * ld;
+    v[w] = live ? __ldg(tdata + at) : 0.f;
+    id[w] = live ? __ldg(tlocal + at) : -1;
+  }
+
+  // 2. per id, the float32 sum in slot order; the first slot of an id keeps it
+#pragma unroll
+  for (int w = 0; w < WT; ++w)
+    if ((unsigned)id[w] >= (unsigned)ct) id[w] = -1;  // dropped, as the one-hot drops it
+  float s[WT];
+  int col[WT];
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+    float acc = __fadd_rn(0.f, v[w]);  // the one-hot sum starts from +0
+    bool first = true;
+#pragma unroll
+    for (int u = 0; u < WT; ++u) {
+      if (u < w) first = first && (id[u] != id[w]);
+      if (u > w && id[u] == id[w]) acc = __fadd_rn(acc, v[u]);
+    }
+    s[w] = acc;
+    col[w] = first ? id[w] : -1;
+  }
+
+  // 3. the tile's columns, CC at a time, through the two staging buffers
+  unsigned char* orow = reinterpret_cast<unsigned char*>(out + (long long)t * ct * R + r0);
+  const long long pitch = (long long)R * sizeof(OutT);  // bytes between dense rows
+  const int vvalid = valid * (int)sizeof(OutT) / 16;  // vectors of a column inside the slab
+  const int nchunks = (ct + CC - 1) / CC;
+  for (int i = 0; i < nchunks; ++i) {
+    unsigned char* raw = smem + (i & 1) * kBufBytes;
+    OutT* buf = reinterpret_cast<OutT*>(raw);  // [CC][RB]
+    uint4* buf4 = reinterpret_cast<uint4*>(raw);
+    const int c0 = i * CC;
+    const int ncols = min(CC, ct - c0);
+#pragma unroll
+    for (int j = tid; j < kVecs; j += RB) buf4[j] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < WT; ++w) {
+      const int c = col[w] - c0;
+      if ((unsigned)c < (unsigned)CC) buf[c * RB + tid] = cast_out<OutT>(s[w]);
+    }
+    __syncthreads();
+    for (int j = tid; j < ncols * V; j += RB) {
+      const int c = j / V, q = j % V;
+      if (q < vvalid) *reinterpret_cast<uint4*>(orow + (c0 + c) * pitch + q * 16) = buf4[j];
+    }
+  }
+}
+
+template <typename OutT, int WT>
+cudaError_t launch_tile_wt(const float* tdata, const int32_t* tlocal, void* out, long long ld,
+                           long long row_offset, int R, int wt, int ntiles, int ct,
+                           cudaStream_t stream) {
+  dim3 grid((R + kTileRows - 1) / kTileRows, ntiles);
+  densify_tile_kernel<OutT, WT><<<grid, kTileRows, 2 * kBufBytes, stream>>>(
+      tdata, tlocal, static_cast<OutT*>(out), ld, row_offset, R, wt, ct);
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_tile(const float* tdata, const int32_t* tlocal, void* out, long long ld,
+                        long long row_offset, int R, int wt, int ntiles, int ct,
+                        cudaStream_t stream) {
+  if (wt <= 4)
+    return launch_tile_wt<OutT, 4>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
+  if (wt <= 8)
+    return launch_tile_wt<OutT, 8>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
+  if (wt <= 16)
+    return launch_tile_wt<OutT, 16>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct,
+                                    stream);
+  return cudaErrorInvalidValue;
+}
+
+// -- the one-warp kernel: any wt ------------------------------------------------
 
 constexpr int kRows = 32;  // slab rows per block: one warp, one row each
 
@@ -49,12 +205,6 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
   *reinterpret_cast<uint2*>(dst) = u;
 }
 
-// float -> int8 saturates (and maps NaN to 0), as XLA's convert does
-__device__ __forceinline__ signed char to_i8(float x) {
-  int i = __float2int_rz(x);
-  return static_cast<signed char>(max(-128, min(127, i)));
-}
-
 __device__ __forceinline__ void store4(int8_t* dst, float4 v) {
   *reinterpret_cast<char4*>(dst) =
       make_char4(to_i8(v.x), to_i8(v.y), to_i8(v.z), to_i8(v.w));
@@ -62,9 +212,9 @@ __device__ __forceinline__ void store4(int8_t* dst, float4 v) {
 
 template <typename OutT>
 __global__ void __launch_bounds__(kRows)
-    densify_kernel(const float* __restrict__ tdata,
-                   const int32_t* __restrict__ tlocal, OutT* __restrict__ out,
-                   long long ld, long long row_offset, int R, int wt, int ct) {
+    densify_warp_kernel(const float* __restrict__ tdata,
+                        const int32_t* __restrict__ tlocal, OutT* __restrict__ out,
+                        long long ld, long long row_offset, int R, int wt, int ct) {
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);  // [ct][kRows]
   const int t = blockIdx.x;
@@ -93,41 +243,51 @@ __global__ void __launch_bounds__(kRows)
 }
 
 template <typename OutT>
-cudaError_t launch(const float* tdata, const int32_t* tlocal, void* out,
-                   long long ld, long long row_offset, int R, int wt,
-                   int ntiles, int ct, cudaStream_t stream) {
+cudaError_t launch_warp(const float* tdata, const int32_t* tlocal, void* out,
+                        long long ld, long long row_offset, int R, int wt,
+                        int ntiles, int ct, cudaStream_t stream) {
   const size_t smem = (size_t)ct * kRows * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      densify_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      densify_warp_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(ntiles, R / kRows);
-  densify_kernel<OutT><<<grid, kRows, smem, stream>>>(
+  densify_warp_kernel<OutT><<<grid, kRows, smem, stream>>>(
       tdata, tlocal, static_cast<OutT*>(out), ld, row_offset, R, wt, ct);
   return cudaGetLastError();
 }
 
+template <typename OutT>
+cudaError_t launch(int variant, const float* tdata, const int32_t* tlocal, void* out,
+                   long long ld, long long row_offset, int R, int wt, int ntiles, int ct,
+                   cudaStream_t stream) {
+  if (variant == 0)
+    return launch_warp<OutT>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
+  return launch_tile<OutT>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
+}
+
 }  // namespace
 
-// out_kind: 0 = int8, 1 = bf16, 2 = f32. The caller guarantees R % 32 == 0,
-// 1 <= ct <= 1024, contiguous [ntiles*wt, ld] inputs and a contiguous
-// [ntiles*ct, R] output. Returns the launch's cudaError_t (0 = launched).
+// out_kind: 0 = int8, 1 = bf16, 2 = f32. variant: 0 = the one-warp kernel
+// (any wt; 1 <= ct <= 1024, R / 32 <= 65535), else the tile kernel (wt <=
+// 16, ntiles <= 65535). The caller guarantees R % 32 == 0, contiguous
+// [ntiles*wt, ld] inputs and a contiguous 16-byte-aligned [ntiles*ct, R]
+// output. Returns the launch's cudaError_t (0 = launched).
 extern "C" int tiled_ell_densify_t_f32(const void* tdata, const void* tlocal,
                                        void* out, long long ld,
                                        long long row_offset, int R, int wt,
                                        int ntiles, int ct, int out_kind,
-                                       void* stream) {
+                                       int variant, void* stream) {
   const float* td = static_cast<const float*>(tdata);
   const int32_t* tl = static_cast<const int32_t*>(tlocal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_kind) {
     case 0:
-      return launch<int8_t>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+      return launch<int8_t>(variant, td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     case 1:
-      return launch<__nv_bfloat16>(td, tl, out, ld, row_offset, R, wt, ntiles,
-                                   ct, s);
+      return launch<__nv_bfloat16>(variant, td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     case 2:
-      return launch<float>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+      return launch<float>(variant, td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -10,9 +10,9 @@ any object with ``shape``, ``dtype``, ``device``, ``mv(B)`` (``A @ B``) and
 * :class:`CenteredOperator` — implicit column centering as a rank-1
   correction, with the operand deflation of its ``rmv`` products; it
   forwards each accuracy class to its base.
-* :class:`DensifiedOperator` — only its HBM capacity rule for now, so
-  that ``make_engine_operator(m, "auto")`` decides as the JAX package
-  does; the engine itself is not ported yet.
+* :class:`DensifiedOperator` — the dense-bf16 engine for matrices whose
+  dense form fits device memory: bf16 ``hi`` (+ ``lo``) payload, bf16
+  tensor-core products with float32 accumulation.
 * :class:`TiledSparseOperator` — the tiled engine: products through the
   ``tiled_ell_spmm_t`` / ``tiled_ell_rmv_t`` kernels over one row-major
   column-tiled payload, plus plain-ELL overflow side arrays.
@@ -21,16 +21,18 @@ Products run in full float32 under the package's precision policy
 (``types.set_precision_policy``), the counterpart of the JAX package's
 ``Precision.HIGHEST`` dots.
 
-**The bf16 operand split is not ported.** The JAX package splits a
-float32 operand into three bf16 terms (``bf16_terms``, ``OPERAND_TERMS``)
-because the TPU's matrix unit rounds an f32 operand to bf16. The port's
-kernels form each slot's product of a bf16 payload value and a float32
-operand in float32 (one rounding, in the FMA), so the tiled engine's
+**The bf16 operand split.** The JAX package splits a float32 operand
+into three bf16 terms (``bf16_terms``, ``OPERAND_TERMS``) because the
+TPU's matrix unit rounds an f32 operand to bf16. The tiled engine does
+not need it here: its kernels form each slot's product of a bf16 payload
+value and a float32 operand in float32 (one rounding, in the FMA), so its
 f32-class products ``mv``/``rmv`` make one kernel call per payload half
 (hi, then lo when the values are not bf16-exact) on the unsplit float32
 operand; ``tests/test_torch_tiled.py`` holds them to the JAX three-term
-result and to a float64 product at 1e-6. This settles the question for
-the tiled engine; the densified engine keeps it open until it is ported.
+result and to a float64 product at 1e-6. The densified engine keeps the
+split: its products are cuBLAS GEMMs, whose tensor cores take bf16
+operands, and the three terms stacked into one ``[p, 3k]`` operand read
+the dense payload once, where a float32 GEMM would first widen it.
 """
 
 from __future__ import annotations
@@ -46,6 +48,8 @@ from ..ops.spmm import ell_spmm
 from ..ops.spmm_kernel import tiled_ell_rmv_t, tiled_ell_spmm_t
 
 __all__ = [
+    "OPERAND_TERMS",
+    "bf16_terms",
     "DenseOperator",
     "CenteredOperator",
     "DensifiedOperator",
@@ -149,11 +153,183 @@ class CenteredOperator:
         return self._rmv_with("rmv_fast", C)
 
 
+# term count of the OPERAND split in the densified engine's precise
+# products: each bf16 term holds 8 mantissa bits, so the dropped residual
+# is ~2^-(8*terms) relative; 3 terms put it under the float32
+# accumulation noise (2 floored explained variance at ~1.5e-5 in the JAX
+# package)
+OPERAND_TERMS = 3
+
+
+def bf16_terms(B: torch.Tensor, terms: int = OPERAND_TERMS) -> list:
+    """Split float32 ``B`` into ``terms`` bf16 tensors summing to ``B``
+    with a ~2^-(8*terms) relative residual."""
+
+    out = []
+    r = B
+    for _ in range(terms - 1):
+        h = r.to(torch.bfloat16)
+        out.append(h)
+        r = r - h.to(B.dtype)
+    out.append(r.to(torch.bfloat16))
+    return out
+
+
+def _bf16_from_bits(a) -> torch.Tensor:
+    """A numpy array of bf16 bit patterns (uint16, or ``ml_dtypes``'
+    bfloat16) as a CPU ``torch.bfloat16`` tensor sharing its memory."""
+
+    bits = np.ascontiguousarray(a).view(np.uint16)
+    if not bits.flags.writeable:  # torch refuses read-only memory
+        bits = bits.copy()
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
+
+def _bf16_dot(a: torch.Tensor, b: torch.Tensor, over_rows: bool) -> torch.Tensor:
+    """``a @ b`` (``a^T @ b`` when ``over_rows``) of bf16 tensors with
+    float32 accumulation and a float32 result, ``a`` being ``[n, p]``.
+    On CUDA one cuBLAS call whose output is float32 (a ``.T`` view, never
+    a transposed copy); a plain ``torch.matmul`` would round the
+    accumulator to bf16. ``b`` is zero-padded to a multiple of 8 columns
+    first: cuBLAS is slower on narrower operands (``chip_smoke.py``'s
+    ``dense_products`` line: on an H100 at 400,000 x 30,000 the 3-column
+    operand of a one-column precise product took 19.1 ms unpadded, 8.8 ms
+    padded). Elsewhere row blocks of ``a`` are widened: products of bf16
+    values are exact in float32."""
+
+    if a.device.type == "cuda":
+        k = b.shape[1]
+        if k % 8:
+            b = torch.nn.functional.pad(b, (0, 8 - k % 8))
+        return torch.mm(a.T if over_rows else a, b, out_dtype=torch.float32)[:, :k]
+    n, p = a.shape
+    step = max((64 << 20) // max(4 * p, 1), 1)
+    bf = b.float()
+    if not over_rows:
+        out = torch.empty((n, b.shape[1]), dtype=torch.float32)
+        for r0 in range(0, n, step):
+            out[r0:r0 + step] = a[r0:r0 + step].float() @ bf
+        return out
+    out = torch.zeros((p, b.shape[1]), dtype=torch.float32)
+    for r0 in range(0, n, step):
+        out.addmm_(a[r0:r0 + step].float().T, bf[r0:r0 + step])
+    return out
+
+
+@dataclasses.dataclass
 class DensifiedOperator:
-    """Capacity rule of the dense-bf16 engine (the engine is not ported
-    yet): the dense ``[n, p]`` bf16 form (plus its lo half when the values
-    are not bf16-exact) must fit 0.6 of device memory, the rest being the
-    randomized solve's workspace."""
+    """Dense-bf16 engine for matrices whose dense form fits device memory.
+
+    At single-cell densities a ``[n, p]`` bf16 densification often fits,
+    and the sketching products then run as dense tensor-core GEMMs.
+
+    * ``hi`` holds bf16(x): exact for raw counts up to 256.
+    * ``lo`` holds bf16(x - hi), together ~16 mantissa bits; it is dropped
+      (None) when the values are bf16-exact.
+    * ``mv``/``rmv`` multiply ``hi`` by the operand rounded to bf16 (what
+      the randomized power iterations ride); ``mv_precise``/``rmv_precise``
+      multiply both halves by the operand split into ``OPERAND_TERMS``
+      bf16 terms, stacked into one ``[., 3k]`` operand so that each half
+      of the payload is read once. Every product accumulates in float32.
+
+    The dense array is laid out ``[n, p]``; ``rmv`` contracts over rows
+    through a transposed view, never a transposed copy. The capacity rule
+    (:meth:`fits`): the dense form (twice that with ``lo``) must fit 0.6
+    of device memory, the rest being the solvers' workspace.
+    """
+
+    hi: torch.Tensor  # [n, p] bfloat16
+    lo: torch.Tensor | None  # [n, p] bfloat16, None when exact
+    shape: Tuple[int, int]
+
+    #: rows of a device-densify block / a col_stats block (f32 temporaries)
+    _BLOCK_BYTES = 256 << 20
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def densify_host(m):
+        """Host densification -> CPU bf16 tensors ``(hi, lo | None)``
+        through the native ``csr_densify_bf16`` (a memset plus an
+        nnz-only scatter with the f32 -> bf16 rounding fused), or the
+        same in torch when no compiler is available."""
+
+        from ..native import build as _native
+
+        src = m._layout_for("row")
+        src._require_host_structure()
+        n, p = m.shape
+        vals = np.ascontiguousarray(src._csr_data_host(), np.float32)
+        exact = m.values_bf16_exact()
+        nat = _native.csr_densify_bf16(
+            src._h_indptr, src._h_indices, vals, n, p, need_lo=not exact
+        )
+        if nat is not None:
+            hi_u16, lo_u16, _ = nat
+            return _bf16_from_bits(hi_u16), (
+                None if exact else _bf16_from_bits(lo_u16)
+            )
+        return _scatter_bf16(
+            torch.from_numpy(src._h_indptr), torch.from_numpy(src._h_indices),
+            torch.from_numpy(vals), n, p, DensifiedOperator._BLOCK_BYTES,
+        )
+
+    @classmethod
+    def from_matrix(cls, m, *, device: bool | None = None) -> "DensifiedOperator":
+        """The operator on ``m.device``. ``device=True`` uploads the CSR
+        arrays and densifies there (a scatter per row block, the JAX
+        package's device route); ``device=False`` densifies on the host
+        and uploads the dense halves. Both give the same ``hi``/``lo``.
+        The default is the device route on a card (faster there:
+        ``build_seconds`` keeps each step's time) and the host route on
+        the CPU."""
+
+        if device is None:
+            device = m.device.type == "cuda"
+        t0 = time.perf_counter()
+        if device:
+            src = m._layout_for("row")
+            src._require_host_structure()
+            vals = np.ascontiguousarray(src._csr_data_host(), np.float32)
+            indptr, indices, vals = (
+                torch.from_numpy(a).to(m.device)
+                for a in (src._h_indptr, src._h_indices, vals)
+            )
+            _sync(m.device)
+            t1 = time.perf_counter()
+            hi, lo = _scatter_bf16(indptr, indices, vals, *m.shape, cls._BLOCK_BYTES)
+            _sync(m.device)
+            seconds = {"upload": t1 - t0, "device_densify": time.perf_counter() - t1}
+        else:
+            hi, lo = cls.densify_host(m)
+            t1 = time.perf_counter()
+            hi = hi.to(m.device)
+            lo = None if lo is None else lo.to(m.device)
+            _sync(m.device)
+            seconds = {"host_densify": t1 - t0, "upload": time.perf_counter() - t1}
+        op = cls(hi, lo, m.shape)
+        op.build_seconds = seconds
+        return op
+
+    @classmethod
+    def from_arrays(cls, hi, lo, shape, *, device="cuda") -> "DensifiedOperator":
+        """Operator on ``device`` from numpy halves: bf16 bit patterns as
+        uint16 or ``ml_dtypes.bfloat16`` arrays, e.g. the JAX operator's
+        ``np.asarray(op.hi)`` / ``np.asarray(op.lo)`` (``lo`` may be None)."""
+
+        n, p = int(shape[0]), int(shape[1])
+        halves = []
+        for a in (hi, lo):
+            if a is None:
+                halves.append(None)
+                continue
+            t = _bf16_from_bits(a)
+            if tuple(t.shape) != (n, p):
+                raise ValueError(f"dense half must be [{n}, {p}], got {tuple(t.shape)}")
+            halves.append(t.to(device) if torch.device(device).type != "cpu" else t.clone())
+        return cls(halves[0], halves[1], (n, p))
+
+    # -- capacity planning (the 'auto' engine selector's input) ---------
 
     @staticmethod
     def hbm_budget_bytes(device: torch.device | str) -> int:
@@ -172,6 +348,103 @@ class DensifiedOperator:
             budget_bytes = cls.hbm_budget_bytes(device)
         n, p = shape
         return 2 * n * p * (2 if needs_lo else 1) <= budget_bytes
+
+    # -- products --------------------------------------------------------
+
+    @property
+    def dtype(self):
+        return torch.float32
+
+    @property
+    def device(self):
+        return self.hi.device
+
+    def mv(self, B):
+        """A @ B: hi by the bf16-rounded operand, float32 accumulation."""
+
+        return _bf16_dot(self.hi, B.to(torch.bfloat16), False).to(B.dtype)
+
+    def rmv(self, C):
+        """A^T @ C: hi by the bf16-rounded operand, float32 accumulation."""
+
+        return _bf16_dot(self.hi, C.to(torch.bfloat16), True).to(C.dtype)
+
+    def _precise(self, B, over_rows: bool):
+        # the matrix AND the operand are split: rounding the operand (the
+        # orthonormal Q of the final projection, a Lanczos vector) would
+        # put first-order error into the singular values
+        k = B.shape[1]
+        stacked = torch.cat(bf16_terms(B.float(), OPERAND_TERMS), dim=1)  # [., 3k]
+        out = None
+        for a in (self.hi, self.lo):
+            if a is None:
+                continue
+            parts = _bf16_dot(a, stacked, over_rows)
+            term = parts[:, :k] + parts[:, k:2 * k]
+            for i in range(2, OPERAND_TERMS):
+                term = term + parts[:, i * k:(i + 1) * k]
+            out = term if out is None else out + term
+        return out.to(B.dtype)
+
+    def mv_precise(self, B):
+        """A @ B at f32-class accuracy (both halves, three operand terms)."""
+
+        return self._precise(B, False)
+
+    def rmv_precise(self, C):
+        """A^T @ C at f32-class accuracy."""
+
+        return self._precise(C, True)
+
+    def col_stats(self):
+        """(sum, sum_sq) per column in float32, over row blocks of
+        ``x = hi + lo`` rebuilt exactly in float32 before squaring."""
+
+        n, p = self.shape
+        s = torch.zeros(p, dtype=torch.float32, device=self.device)
+        sq = torch.zeros(p, dtype=torch.float32, device=self.device)
+        step = max(self._BLOCK_BYTES // max(4 * p, 1), 1)
+        for r0 in range(0, n, step):
+            x = self.hi[r0:r0 + step].float()
+            if self.lo is not None:
+                x += self.lo[r0:r0 + step].float()
+            s += x.sum(dim=0)
+            sq += (x * x).sum(dim=0)
+        return s, sq
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _scatter_bf16(indptr, indices, vals, n: int, p: int, block_bytes: int):
+    """CSR arrays (tensors on one device, no duplicate entries) -> dense
+    bf16 ``(hi [n, p], lo | None)`` there: hi = bf16(v), lo = bf16(v - hi)
+    scattered into zeroed arrays one row block at a time (about
+    ``block_bytes`` of int64 indices each), so nothing dense is ever held
+    in float32. ``lo`` is None when every value is bf16-exact."""
+
+    dev = vals.device
+    hv = vals.to(torch.bfloat16)
+    lv = (vals - hv.float()).to(torch.bfloat16)
+    exact = not bool((lv != 0).any())
+    hi = torch.zeros((n, p), dtype=torch.bfloat16, device=dev)
+    lo = None if exact else torch.zeros((n, p), dtype=torch.bfloat16, device=dev)
+    per_row = max(vals.numel() / max(n, 1), 1.0)
+    step = max(int(block_bytes / 16 / per_row), 1)  # rows per block
+    counts = indptr[1:] - indptr[:-1]
+    for r0 in range(0, n, step):
+        r1 = min(r0 + step, n)
+        a, b = int(indptr[r0]), int(indptr[r1])
+        rows = torch.repeat_interleave(
+            torch.arange(r0, r1, device=dev, dtype=torch.int64), counts[r0:r1]
+        )
+        flat = rows * p + indices[a:b].to(torch.int64)
+        hi.view(-1)[flat] = hv[a:b]
+        if lo is not None:
+            lo.view(-1)[flat] = lv[a:b]
+    return hi, lo
 
 
 def _kp(k: int) -> int:

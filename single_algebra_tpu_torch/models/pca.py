@@ -13,11 +13,13 @@ center=True, method=Lanczos) and the same semantics:
 * ``save``/``load`` use the JAX package's ``.npz`` format, so a model
   saved by either package loads in the other.
 
-The Gram engine (``linalg/gram.py``) and the tiled engine
-(``TiledSparseOperator``, randomized method only) are ported.
-``make_engine_operator`` keeps the JAX decision order and raises
-``NotImplementedError`` where that order lands on an engine the port does
-not have; it never substitutes one.
+The densified engine (``DensifiedOperator``), the Gram engine
+(``linalg/gram.py``) and the tiled engine (``TiledSparseOperator``) are
+ported, with the randomized, Lanczos and block-Lanczos solvers on the
+non-Gram engines. ``make_engine_operator`` keeps the JAX decision order
+and raises ``NotImplementedError`` where that order lands on the one
+engine the port does not have (the gather engine, ``'sparse'``); it never
+substitutes one.
 """
 
 from __future__ import annotations
@@ -31,7 +33,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..linalg.block_lanczos import block_lanczos_svd
 from ..linalg.gram import EIGH_MAX_PP, GramPCAEngine, gram_pca_graph
+from ..linalg.lanczos import lanczos_svd
 from ..linalg.operators import CenteredOperator, DensifiedOperator, TiledSparseOperator
 from ..linalg.svd import randomized_svd, svd_flip
 from ..sparse.matrix import SparseMatrix
@@ -42,11 +46,8 @@ __all__ = ["SparsePCA", "SparsePCABuilder", "make_engine_operator"]
 # engines of the JAX package that the port does not have yet, with the
 # ROADMAP items that port each
 _NOT_PORTED = {
-    "dense": "ROADMAP Queue 1 item 3 (DensifiedOperator)",
     "sparse": "ROADMAP Queue 1 item 2 (SparseOperator)",
 }
-# the Lanczos solvers of the non-Gram engines, not ported yet
-_LANCZOS_NOT_PORTED = "ROADMAP Queue 1 item 5 (lanczos_svd, block_lanczos_svd)"
 
 
 def _as_matrix(x, device="cuda") -> SparseMatrix:
@@ -89,8 +90,8 @@ def make_engine_operator(m: SparseMatrix, engine: str = "auto"):
     engine when the dense bf16 form fits 0.6 of device memory, else the
     Gram engine when its plan fits 0.8, else the tiled engine when its
     payload fits 0.6, else the gather engine. On any other device 'auto'
-    is 'sparse', as off the TPU in the JAX package. Engines not ported yet
-    raise ``NotImplementedError``.
+    is 'sparse', as off the TPU in the JAX package. The gather engine
+    ('sparse') is not ported yet and raises ``NotImplementedError``.
     """
 
     cache = m._operator_cache
@@ -116,7 +117,9 @@ def make_engine_operator(m: SparseMatrix, engine: str = "auto"):
     if engine in cache:
         cache[requested] = cache[engine]
         return cache[engine]
-    if engine == "gram":
+    if engine == "dense":
+        op = DensifiedOperator.from_matrix(m)
+    elif engine == "gram":
         op = GramPCAEngine.from_matrix(m)
     elif engine == "tiled":
         op = TiledSparseOperator.from_matrix(m)
@@ -124,7 +127,7 @@ def make_engine_operator(m: SparseMatrix, engine: str = "auto"):
         raise NotImplementedError(
             f"engine {engine!r} (from engine={requested!r} on "
             f"{m.device.type}) is not ported to torch yet: "
-            f"{_NOT_PORTED[engine]}. Pass engine='gram' or 'tiled'."
+            f"{_NOT_PORTED[engine]}. Pass engine='dense', 'gram' or 'tiled'."
         )
     else:
         raise ValueError(f"unknown engine {engine!r}")
@@ -134,17 +137,38 @@ def make_engine_operator(m: SparseMatrix, engine: str = "auto"):
 
 
 def _fit_graph(op, mean, seed, *, k: int, method: SVDMethod, center: bool,
-               want_transform: bool, omega=None):
-    """The fit on a non-Gram engine (randomized method): SVD of the
-    (centered) operator -> sign flip -> optional scores ``(X - 1 mu^T)
-    V^T`` through the operator's precise product. ``omega`` replaces the
-    seeded sketch (the parity tests pass the JAX package's)."""
+               steps: int | None = None, want_transform: bool, tol: float | None = None,
+               lanczos_block: int | None = None, omega=None, start=None,
+               info: dict | None = None):
+    """The fit on a non-Gram engine: SVD -> sign flip -> optional scores
+    ``(X - 1 mu^T) V^T`` through the operator's precise product.
+
+    The randomized method solves the (centered) operator. The Lanczos
+    methods run on the RAW operator (the reference never centers the
+    Lanczos path; only the projection is centered): block Lanczos when
+    ``lanczos_block`` is set, else the scalar recurrence; ``tol`` drives
+    their convergence-adaptive mode and ``steps`` is the Krylov budget.
+    ``omega`` replaces the seeded sketch and ``start`` the Lanczos start
+    vector / block (the parity tests pass the JAX package's); ``info``
+    receives the steps a Lanczos solver took."""
 
     proj_op = CenteredOperator(op, mean) if center else op
-    res = randomized_svd(
-        proj_op, k, method.n_oversamples, method.n_power_iterations,
-        method.normalizer, seed=seed, omega=omega,
-    )
+    if method.is_random:
+        res = randomized_svd(
+            proj_op, k, method.n_oversamples, method.n_power_iterations,
+            method.normalizer, seed=seed, omega=omega,
+        )
+    elif lanczos_block is not None:
+        # `steps` is the KRYLOV DIMENSION on every ``SparsePCABuilder`` surface;
+        # block_lanczos_svd counts block steps, so convert here: a tuned
+        # depth carries over between the two modes
+        bsteps = None if steps is None else max(-(-steps // lanczos_block), 2)
+        res = block_lanczos_svd(
+            op, k, block_size=lanczos_block, steps=bsteps, seed=seed, tol=tol,
+            V1=start, info=info,
+        )
+    else:
+        res = lanczos_svd(op, k, steps=steps, seed=seed, tol=tol, v0=start, info=info)
     _, vt = svd_flip(res.u, res.vt, u_based_decision=False)
     T = _project(proj_op, vt.T) if want_transform else None
     return res.s, vt, T
@@ -308,6 +332,7 @@ class SparsePCA(_LazyPCAState):
         self.center = center
         self.verbose = verbose
         self.svd_method = svd_method
+        self.lanczos_steps_taken_: int | None = None  # (block) steps of the last Lanczos fit
         self._init_lazy_state()
 
     # -- fitting -------------------------------------------------------
@@ -363,17 +388,15 @@ class SparsePCA(_LazyPCAState):
                 solver_oversamples=sm.n_oversamples if sm.is_random else 10,
                 solver_iters=sm.n_power_iterations if sm.is_random else 6,
             )
-        elif not sm.is_random:
-            raise NotImplementedError(
-                f"the Lanczos method on the {type(op).__name__} engine is not "
-                f"ported to torch yet: {_LANCZOS_NOT_PORTED}. Use "
-                "SVDMethod.random(...) or engine='gram'."
-            )
         else:
+            info = {}
             s_dev, vt, T = _fit_graph(
                 op, self._mean_dev, self.random_seed, k=k, method=sm,
-                center=self.center, want_transform=want_t,
+                center=self.center, steps=self.lanczos_steps,
+                want_transform=want_t, tol=self.tolerance,
+                lanczos_block=self.lanczos_block, info=info,
             )
+            self.lanczos_steps_taken_ = info.get("steps")
         self._fitted_transform = T
         t_svd = time.perf_counter() - t0 - t_op - t_stats
         self._fit_timings = dict(operator=t_op, stats=t_stats, svd=t_svd)
@@ -531,7 +554,8 @@ class SparsePCABuilder:
         return self
 
     def engine(self, e: str) -> "SparsePCABuilder":
-        """Compute engine: 'auto', 'gram' or 'tiled' (the engines ported)."""
+        """Compute engine: 'auto', 'dense', 'gram' or 'tiled' (the engines
+        ported)."""
 
         self._engine = e
         return self

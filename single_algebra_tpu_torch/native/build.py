@@ -92,6 +92,7 @@ def get_lib():
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
         f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
         c64 = ctypes.c_int64
 
         lib.csr_transpose_f32.argtypes = [
@@ -119,6 +120,10 @@ def get_lib():
             i64p, i32p, f32p, i64p, c64, i64p, i32p, f32p,
         ]
         lib.csr_extract_rows_f32.restype = None
+        lib.csr_densify_bf16.argtypes = [
+            i64p, i32p, f32p, c64, c64, u16p, ctypes.c_void_p,
+        ]
+        lib.csr_densify_bf16.restype = ctypes.c_int32
         lib.f32_bf16_exact.argtypes = [f32p, c64]
         lib.f32_bf16_exact.restype = ctypes.c_int32
         _lib = lib
@@ -148,3 +153,24 @@ def csr_transpose(indptr, indices, data, n_rows, n_cols):
         work,
     )
     return out_indptr, out_indices, out_data
+
+
+def csr_densify_bf16(indptr, indices, data, n_rows, n_cols, need_lo):
+    """Native CSR -> dense bf16 bit patterns: ``(hi_u16 [n, p], lo_u16 or
+    None, exact)``, or None (use the torch fallback)."""
+
+    lib = get_lib()
+    if lib is None or data.dtype != np.float32:
+        return None
+    hi = np.zeros((n_rows, n_cols), np.uint16)
+    lo = np.zeros((n_rows, n_cols), np.uint16) if need_lo else None
+    exact = lib.csr_densify_bf16(
+        np.ascontiguousarray(indptr, np.int64),
+        np.ascontiguousarray(indices, np.int32),
+        np.ascontiguousarray(data, np.float32),
+        n_rows,
+        n_cols,
+        hi,
+        lo.ctypes.data if lo is not None else None,
+    )
+    return hi, lo, bool(exact)

@@ -16,17 +16,22 @@ once. Ids outside ``[0, col_tile)`` contribute nothing. The slab is a
 window into the bucket payload (offset and stride), so a slab costs no
 copy of its payload.
 
-**Routes.** On CUDA tensors :func:`tiled_ell_densify_t` launches the
-hand-written Hopper kernel ``csrc/tiled_ell_densify.cu`` (built with
+**Routes.** On CUDA tensors :func:`tiled_ell_densify_t` launches a
+hand-written Hopper kernel of ``csrc/tiled_ell_densify.cu`` (built with
 ``nvcc`` for ``sm_90a`` on first use, bound with ctypes) or raises; on
 CPU tensors it runs :func:`tiled_ell_densify_t_plain`, the one-hot
-select-add of the TPU kernel in plain PyTorch. Both give bit-identical
-results. The kernel takes float32 payloads only: the Gram engine's host
-build always produces float32 payloads, and a float64 payload is refused
-rather than silently narrowed. The plain version also takes float64 (the
-tiled engine's float64 payloads on the CPU). The nvcc build, the ctypes
-loading and the launch counts are shared with the other kernels
-(``ops/cuda_lib.py``).
+select-add of the TPU kernel in plain PyTorch. All give bit-identical
+results. The source holds two kernels (see its note): the tile kernel
+for ``wt <= 16`` (sums formed in registers, a staging tile in the output
+type, bulk asynchronous stores), and the one-warp kernel for any ``wt``
+(a float32 accumulator tile in shared memory), which serves wider
+buckets and is what :func:`tiled_ell_densify_t_warp` always launches, so
+the tile kernel can be held to it. The kernels take float32 payloads
+only: the Gram engine's host build always produces float32 payloads, and
+a float64 payload is refused rather than silently narrowed. The plain
+version also takes float64 (the tiled engine's float64 payloads on the
+CPU). The nvcc build, the ctypes loading and the launch counts are
+shared with the other kernels (``ops/cuda_lib.py``).
 """
 
 from __future__ import annotations
@@ -41,13 +46,16 @@ from .cuda_lib import launch_counts, reset_launch_counts  # noqa: F401
 __all__ = [
     "tiled_ell_densify_t",
     "tiled_ell_densify_t_plain",
+    "tiled_ell_densify_t_warp",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 _OUT_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
-_ROWS_PER_BLOCK = 32  # the kernel's block covers 32 slab rows
-MAX_COL_TILE = 1024  # [col_tile, 32] f32 accumulator = 128 KB of shared memory
+_ROW_MULTIPLE = 32  # slab rows come in whole warps
+MAX_COL_TILE = 1024  # one-warp kernel: [col_tile, 32] f32 accumulator = 128 KB
+TILE_KERNEL_MAX_WT = 16  # the tile kernel keeps a row's slots in registers
+_WARP_KERNEL, _TILE_KERNEL = 0, 1  # the C entry point's ``variant``
 
 
 def _bind(lib) -> None:
@@ -56,7 +64,7 @@ def _bind(lib) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
 
@@ -135,33 +143,64 @@ def tiled_ell_densify_t(
 ) -> torch.Tensor:
     """Densify slab ``[row_offset, row_offset + rows)`` of the payload to
     ``[ntiles * col_tile, rows]`` (see the module docs). CUDA tensors run
-    the Hopper kernel and raise on anything it does not take; CPU tensors
-    run :func:`tiled_ell_densify_t_plain`."""
+    a Hopper kernel (the tile kernel up to ``wt`` 16, the one-warp kernel
+    above) and raise on anything it does not take; CPU tensors run
+    :func:`tiled_ell_densify_t_plain`."""
 
     if tdata.device.type == "cpu" and tlocal.device.type == "cpu":
         return tiled_ell_densify_t_plain(
             tdata, tlocal, wt=wt, ntiles=ntiles, col_tile=col_tile,
             out_dtype=out_dtype, row_offset=row_offset, rows=rows,
         )
+    variant = _TILE_KERNEL if wt <= TILE_KERNEL_MAX_WT else _WARP_KERNEL
+    return _launch(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset,
+                   rows, variant)
+
+
+def tiled_ell_densify_t_warp(
+    tdata: torch.Tensor,
+    tlocal: torch.Tensor,
+    *,
+    wt: int,
+    ntiles: int,
+    col_tile: int = 256,
+    out_dtype: torch.dtype = torch.bfloat16,
+    row_offset: int = 0,
+    rows: int | None = None,
+) -> torch.Tensor:
+    """:func:`tiled_ell_densify_t` through the one-warp kernel whatever
+    ``wt`` is (CUDA tensors only): the kernel the tile kernel is held to."""
+
+    return _launch(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset,
+                   rows, _WARP_KERNEL)
+
+
+def _launch(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows,
+            variant):
+    """Check the arguments, launch kernel ``variant`` on the tensors' card
+    and count the launch."""
+
     if tdata.device.type != "cuda":
-        raise ValueError(f"tiled_ell_densify_t runs on CPU or CUDA, got {tdata.device}")
+        raise ValueError(f"the densify kernels run on CUDA tensors, got {tdata.device}")
     rows = _check(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows)
     if tdata.dtype != torch.float32 or out_dtype not in _OUT_KIND:
         raise TypeError(
-            f"the CUDA densify kernel takes float32 payloads and int8, bf16 or "
+            f"the CUDA densify kernels take float32 payloads and int8, bf16 or "
             f"float32 outputs, got {tdata.dtype} -> {out_dtype}"
         )
     if not (tdata.is_contiguous() and tlocal.is_contiguous()):
-        raise ValueError("the CUDA densify kernel needs contiguous payload arrays")
-    if rows % _ROWS_PER_BLOCK or rows // _ROWS_PER_BLOCK > 65535:
+        raise ValueError("the CUDA densify kernels need contiguous payload arrays")
+    if rows % _ROW_MULTIPLE or rows // _ROW_MULTIPLE > 65535:
         raise ValueError(
-            f"slab rows must be a multiple of {_ROWS_PER_BLOCK} and at most "
-            f"{65535 * _ROWS_PER_BLOCK}, got {rows}"
+            f"slab rows must be a multiple of {_ROW_MULTIPLE} and at most "
+            f"{65535 * _ROW_MULTIPLE}, got {rows}"
         )
     if not 1 <= col_tile <= MAX_COL_TILE:
         raise ValueError(f"col_tile must be in [1, {MAX_COL_TILE}], got {col_tile}")
-    if wt < 1 or ntiles < 1:
-        raise ValueError(f"wt and ntiles must be positive, got {wt}, {ntiles}")
+    if wt < 1 or not 1 <= ntiles <= 65535:
+        raise ValueError(
+            f"wt must be positive and ntiles in [1, 65535], got {wt}, {ntiles}"
+        )
     out = torch.empty(
         (ntiles * col_tile, rows), dtype=out_dtype, device=tdata.device
     )
@@ -173,7 +212,7 @@ def tiled_ell_densify_t(
         err = lib.tiled_ell_densify_t_f32(
             tdata.data_ptr(), tlocal.data_ptr(), out.data_ptr(),
             tdata.shape[1], row_offset, rows, wt, ntiles, col_tile,
-            _OUT_KIND[out_dtype], stream,
+            _OUT_KIND[out_dtype], variant, stream,
         )
     if err != 0:
         raise RuntimeError(f"tiled_ell_densify_t launch failed: cudaError {err}")

@@ -76,10 +76,14 @@ class SVDMethod:
 
 def set_precision_policy() -> None:
     """Full-float32 products everywhere: TF32 off for cuBLAS and cuDNN,
-    and ``"highest"`` float32 matmul precision (the port's counterpart of
-    ``MATMUL_PRECISION = HIGHEST``)."""
+    ``"highest"`` float32 matmul precision (the port's counterpart of
+    ``MATMUL_PRECISION = HIGHEST``), and no reduced-precision (bf16)
+    accumulation inside bf16 products: the densified engine's bf16 x bf16
+    products accumulate in float32, as ``preferred_element_type=float32``
+    does in the JAX package."""
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 

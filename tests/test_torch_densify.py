@@ -4,7 +4,8 @@
 (``array_equal``) for int8, bf16 and f32 outputs, including padding slots,
 duplicate ids (which sum in slot order) and ids outside the tile. On the
 CPU the wrapper runs the plain PyTorch version; the ``requires_cuda``
-tests hold the Hopper kernel to that plain version and skip without a
+tests hold both Hopper kernels (the tile kernel, and the one-warp kernel
+it must equal bit for bit) to that plain version and skip without a
 card. JAX is imported inside the parity tests only, so the CUDA tests of
 this file also run where JAX is not installed:
 
@@ -19,6 +20,7 @@ from single_algebra_tpu_torch.ops import densify
 from single_algebra_tpu_torch.ops.densify import (
     tiled_ell_densify_t,
     tiled_ell_densify_t_plain,
+    tiled_ell_densify_t_warp,
 )
 
 OUT_DTYPES = {"int8": torch.int8, "bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -79,6 +81,38 @@ def test_densify_matches_pallas(out_dtype, case):
     )
     assert got.dtype == OUT_DTYPES[out_dtype]
     assert tuple(got.shape) == (ntiles * ct, slab)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+# (case, wt, col_tile, slab offset, slab rows, duplicate ids, ids outside the tile)
+SLAB_CASES = [
+    ("wt4", 4, 128, 0, 256, False, False),
+    ("wt8_offset", 8, 128, 128, 384, False, False),
+    ("wt16_dup", 16, 128, 256, 256, True, False),
+    ("wt8_bad_ids", 8, 128, 128, 128, False, True),
+    ("wt4_dup_bad_ct64", 4, 64, 384, 128, True, True),
+    ("wt16_ct256", 16, 256, 0, 128, False, True),
+]
+
+
+@pytest.mark.parametrize("out_dtype", list(OUT_DTYPES))
+@pytest.mark.parametrize("case", SLAB_CASES, ids=[c[0] for c in SLAB_CASES])
+def test_densify_slab_cases_match_pallas(out_dtype, case):
+    """wt in {4, 8, 16}, duplicate and out-of-range ids, a slab at a
+    non-zero offset, several column tiles: the CPU twins of the
+    ``requires_cuda`` cases below, against the Pallas kernel."""
+
+    _, wt, ct, off, rows, dup, bad = case
+    ntiles = 2
+    vals, ids = payload(7, ntiles, wt, 512, ct, dup=dup, bad_ids=bad,
+                        frac=out_dtype != "int8")
+    want = jax_densify(vals[:, off:off + rows], ids[:, off:off + rows], wt=wt,
+                       ntiles=ntiles, ct=ct, out_dtype=out_dtype)
+    got = tiled_ell_densify_t(
+        torch.from_numpy(vals), torch.from_numpy(ids), wt=wt, ntiles=ntiles,
+        col_tile=ct, out_dtype=OUT_DTYPES[out_dtype], row_offset=off, rows=rows,
+    )
+    assert tuple(got.shape) == (ntiles * ct, rows)
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
@@ -160,3 +194,42 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
         tiled_ell_densify_t(tv, ti, rows=48, **kw)
     with pytest.raises(ValueError):  # values on the card, ids on the host
         tiled_ell_densify_t(tv, ti.cpu(), **kw)
+
+
+# (case, wt, col_tile, payload rows, slab offset, slab rows, dup ids, bad ids)
+CUDA_SLAB_CASES = [
+    ("wt4", 4, 256, 2048, 0, 1024, False, False),
+    ("wt8_offset", 8, 256, 3072, 1024, 1024, False, False),
+    ("wt8_ragged", 8, 256, 2048, 96, 1184, False, False),  # rows % 256 != 0
+    ("wt16_dup", 16, 256, 2048, 512, 1024, True, False),
+    ("wt8_bad_ids", 8, 256, 1024, 0, 1024, False, True),
+    ("wt5_ct200", 5, 200, 1024, 32, 448, True, True),
+    ("wt12_ct40", 12, 40, 512, 0, 512, False, True),
+    ("wt16_ct1024", 16, 1024, 512, 0, 512, True, False),
+    ("wt24_warp_kernel", 24, 256, 1024, 256, 512, True, True),  # past the tile kernel
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("out_dtype", list(OUT_DTYPES))
+@pytest.mark.parametrize("case", CUDA_SLAB_CASES, ids=[c[0] for c in CUDA_SLAB_CASES])
+def test_cuda_kernels_bit_identical(cuda, out_dtype, case):
+    """The kernel the wrapper picks, the one-warp kernel and the plain
+    version give the same bits (compared as raw bytes, so -0 != +0)."""
+
+    _, wt, ct, R, off, rows, dup, bad = case
+    ntiles = 3
+    vals, ids = payload(8, ntiles, wt, R, ct, dup=dup, bad_ids=bad,
+                        frac=out_dtype != "int8")
+    vals[0, off] = -0.0  # a stored negative zero sums to +0, as in the one-hot form
+    tv, ti = torch.from_numpy(vals).to(cuda), torch.from_numpy(ids).to(cuda)
+    kw = dict(wt=wt, ntiles=ntiles, col_tile=ct, out_dtype=OUT_DTYPES[out_dtype],
+              row_offset=off, rows=rows)
+    densify.reset_launch_counts()
+    got = tiled_ell_densify_t(tv, ti, **kw)
+    warp = tiled_ell_densify_t_warp(tv, ti, **kw)
+    torch.cuda.synchronize()
+    assert densify.launch_counts["tiled_ell_densify_t"] == 2
+    want = tiled_ell_densify_t_plain(tv, ti, **kw)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(warp.view(torch.uint8), want.view(torch.uint8))

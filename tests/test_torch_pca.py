@@ -1,6 +1,11 @@
-"""The whole slice: ``SparsePCA`` of the torch port against the JAX package
-on the Gram engine. Explained variances to 1e-5 relative; components and
+"""The whole slice: ``SparsePCA`` of the torch port against the JAX package.
+
+On the Gram engine: explained variances to 1e-5 relative; components and
 scores to 1e-4 x max|.| (both packages apply the same sign convention).
+On the densified and tiled engines with the Lanczos solvers (``SparsePCABuilder``'s
+default method, and ``lanczos_block``): each package draws its own start
+vector, so the converged explained variances are held to 1e-4 relative to
+the largest and the scores to 1e-3 x max|.|.
 """
 
 import os
@@ -148,9 +153,12 @@ def test_from_state(fitted, counts):
 def test_engine_selection(counts):
     m = SparseMatrix.from_scipy(counts, device="cpu")
     # on a CPU device 'auto' is 'sparse', as off the TPU in the JAX package
-    for engine in ("auto", "sparse", "dense"):
+    for engine in ("auto", "sparse"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tpca.make_engine_operator(m, engine)
+    dense = tpca.make_engine_operator(m, "dense")
+    assert isinstance(dense, tpca.DensifiedOperator) and dense.lo is None
+    assert tpca.make_engine_operator(m, "dense") is dense
     with pytest.raises(ValueError):
         tpca.make_engine_operator(m, "bogus")
     op = tpca.make_engine_operator(m, "gram")
@@ -206,10 +214,11 @@ def test_auto_decision_order_on_cuda(monkeypatch, counts, dense_budget, gram_bud
     monkeypatch.setattr(tpca.TiledSparseOperator, "payload_bytes",
                         classmethod(lambda cls, mm: 5000))
     built = []
-    for cls, name in ((tgram.GramPCAEngine, "gram"), (tpca.TiledSparseOperator, "tiled")):
+    for cls, name in ((tpca.DensifiedOperator, "dense"), (tgram.GramPCAEngine, "gram"),
+                      (tpca.TiledSparseOperator, "tiled")):
         monkeypatch.setattr(cls, "from_matrix", classmethod(
             lambda cls, mm, name=name: built.append((name, mm)) or f"{name}-engine"))
-    if want in ("gram", "tiled"):
+    if want != "sparse":
         assert tpca.make_engine_operator(m, "auto") == f"{want}-engine"
         assert built == [(want, m)]
     else:
@@ -249,18 +258,129 @@ def test_transform_projects_with_mv_precise(fitted, counts):
     assert np.abs(T2 - T).max() <= 1e-4 * np.abs(T).max()
 
 
+def fit_lanczos_both(X, engine, k=5, block=None, steps=None, center=True):
+    """(port model, port scores, JAX model, JAX scores) with the Lanczos
+    method on ``engine``; each package draws its own start vector."""
+
+    tp = (SparsePCABuilder().n_components(k).center(center).engine(engine)
+          .lanczos_block(block).build())
+    jp = (jmodels.SparsePCABuilder().n_components(k).center(center).engine(engine)
+          .lanczos_block(block).build())
+    tp.lanczos_steps = jp.lanczos_steps = steps
+    T = tp.fit_transform(SparseMatrix.from_scipy(X, device="cpu")).numpy()
+    Tj = np.asarray(jp.fit_transform(JMatrix.from_scipy(X)))
+    return tp, T, jp, Tj
+
+
+def assert_lanczos_models_match(tp, T, jp, Tj, counts, k):
+    evj = np.asarray(jp.explained_variance_, np.float64)
+    assert np.abs(tp.explained_variance_ - evj).max() <= 1e-4 * evj[0]
+    # Lanczos never centers the SVD: the uncentered singular values
+    s = np.linalg.svd(counts.toarray().astype(np.float64), compute_uv=False)[:k]
+    assert np.abs(tp.explained_variance_ - s**2 / (counts.shape[0] - 1)).max() <= 1e-4 * evj[0]
+    assert T.shape == Tj.shape and np.isfinite(T).all()
+    assert np.abs(T - Tj).max() <= 1e-3 * np.abs(Tj).max()
+    np.testing.assert_allclose(tp.mean_, np.asarray(jp.mean_), rtol=1e-6)
+    assert tp.total_variance_ == pytest.approx(jp.total_variance_, rel=1e-6)
+
+
 def test_lanczos_on_tiled_names_its_roadmap_item(counts):
-    m = SparseMatrix.from_scipy(counts, device="cpu")
+    """The Lanczos method on the tiled engine, scalar and block: it runs
+    and gives the JAX package's model."""
+
     for block in (None, 4):
-        pca = (SparsePCABuilder().n_components(3).svd_method(SVDMethod.lanczos())
-               .lanczos_block(block).engine("tiled").build())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5") as err:
-            pca.fit(m)
-    queue, num, names = re.search(r"Queue (\d+) item (\d+) \(([^)]*)\)",
-                                  str(err.value)).groups()
-    item = _roadmap_items()[(int(queue), int(num))]
-    for name in names.split(", "):
-        assert re.search(rf"\b{name}\b", item), name
+        tp, T, jp, Tj = fit_lanczos_both(counts, "tiled", k=3, block=block)
+        assert tp.lanczos_steps_taken_ > 0
+        assert_lanczos_models_match(tp, T, jp, Tj, counts, 3)
+
+
+@pytest.mark.parametrize("engine", ["dense", "tiled"])
+@pytest.mark.parametrize("block", [None, 8])
+def test_default_builder_lanczos_matches_jax(counts, engine, block):
+    """``SparsePCABuilder``'s defaults (Lanczos, adaptive at tolerance 1e-6), and
+    ``lanczos_block(8)``, on the densified and the tiled engine."""
+
+    tp, T, jp, Tj = fit_lanczos_both(counts, engine, k=5, block=block)
+    assert_lanczos_models_match(tp, T, jp, Tj, counts, 5)
+    budget = 384 if block is None else 384 // block
+    assert 0 < tp.lanczos_steps_taken_ < budget  # it stopped on convergence
+
+
+@pytest.mark.parametrize("engine", ["dense", "tiled"])
+@pytest.mark.parametrize("block", [None, 4])
+def test_fit_graph_lanczos_matches_jax_from_its_start(counts, engine, block):
+    """``_fit_graph``'s Lanczos branches from the JAX package's own start
+    vector / block: the two recurrences then agree step for step, so the
+    singular values are held to 1e-5 and components and scores to 1e-4."""
+
+    import jax
+    import jax.numpy as jnp
+
+    from single_algebra_tpu.models import pca as jpca
+
+    k, seed = 4, 42
+    p = counts.shape[1]
+    op = tpca.make_engine_operator(SparseMatrix.from_scipy(counts, device="cpu"), engine)
+    jop = jpca.make_engine_operator(JMatrix.from_scipy(counts), engine)
+    mean = np.asarray(counts.mean(axis=0)).ravel().astype(np.float32)
+    key = jax.random.PRNGKey(jnp.asarray(seed, jnp.uint32))
+    if block is None:
+        start = np.array(jax.random.normal(key, (p,), dtype=jnp.float32))
+    else:
+        start = np.array(jnp.linalg.qr(jax.random.normal(key, (p, block), dtype=jnp.float32))[0])
+    js, jvt, jT = jpca._fit_graph(
+        jop, jnp.asarray(mean), seed, k=k, method=JSVD.lanczos(), center=True, steps=None,
+        want_transform=True, tol=1e-6, lanczos_block=block)
+    info = {}
+    s, vt, T = tpca._fit_graph(
+        op, torch.from_numpy(mean), seed, k=k, method=SVDMethod.lanczos(), center=True,
+        steps=None, want_transform=True, tol=1e-6, lanczos_block=block,
+        start=torch.from_numpy(start), info=info)
+    assert info["steps"] > 0
+    np.testing.assert_allclose(s.numpy() ** 2, np.asarray(js) ** 2, rtol=1e-5)
+    jvt, jT = np.asarray(jvt), np.asarray(jT)
+    assert np.abs(vt.numpy() - jvt).max() <= 1e-4 * np.abs(jvt).max()
+    assert np.abs(T.numpy() - jT).max() <= 1e-4 * np.abs(jT).max()
+
+
+@pytest.mark.parametrize("engine", ["dense", "tiled"])
+def test_lanczos_steps_is_the_krylov_dimension(counts, engine):
+    """A tuned ``lanczos_steps`` is the Krylov budget of the scalar solver
+    and is converted to block steps for the block solver."""
+
+    m = SparseMatrix.from_scipy(counts, device="cpu")
+    pca = (SparsePCABuilder().n_components(4).engine(engine).tolerance(0.0)
+           .lanczos_steps(48).build())
+    pca.fit(m)
+    assert pca.lanczos_steps_taken_ == 48
+    pca = (SparsePCABuilder().n_components(4).engine(engine).tolerance(0.0)
+           .lanczos_steps(48).lanczos_block(8).build())
+    pca.fit(m)
+    assert pca.lanczos_steps_taken_ == 6
+
+
+def test_dense_engine_inexact_values_keep_lo(counts):
+    """Non-bf16-exact values: the densified engine keeps its lo half and
+    the Lanczos fit still agrees with the JAX package and the exact SVD."""
+
+    X = sp.csr_matrix((counts.data * np.float32(1.2345), counts.indices, counts.indptr),
+                      shape=counts.shape)
+    tp, T, jp, Tj = fit_lanczos_both(X, "dense", k=4)
+    assert_lanczos_models_match(tp, T, jp, Tj, X, 4)
+
+
+def test_dense_engine_randomized_matches_jax(counts):
+    """The randomized method on the densified engine, both packages on
+    their own sketch: converged explained variances to 1e-4."""
+
+    tm, jm = SVDMethod.random(10, 7, PIN.QR), JSVD.random(10, 7, JPIN.QR)
+    tp = SparsePCABuilder().n_components(5).svd_method(tm).engine("dense").build()
+    jp = jmodels.SparsePCABuilder().n_components(5).svd_method(jm).engine("dense").build()
+    T = tp.fit_transform(SparseMatrix.from_scipy(counts, device="cpu")).numpy()
+    Tj = np.asarray(jp.fit_transform(JMatrix.from_scipy(counts)))
+    evj = np.asarray(jp.explained_variance_, np.float64)
+    assert np.abs(tp.explained_variance_ - evj).max() <= 1e-4 * evj[0]
+    assert np.abs(T - Tj).max() <= 1e-3 * np.abs(Tj).max()
 
 
 def test_budgets_follow_device_memory(monkeypatch):
@@ -295,15 +415,14 @@ def test_default_device_is_the_card(counts):
 def test_default_fit_runs_on_the_card_or_raises(counts, monkeypatch):
     """A scipy input goes to the card; without one the fit raises instead
     of running on the CPU. On a card this small matrix's dense form fits,
-    so 'auto' names the unported dense engine; with the dense budget at 0
-    it takes the Gram engine there (the card run of this check is
+    so 'auto' takes the densified engine; with the dense budget at 0 it
+    takes the Gram engine there (the card run of this check is
     ``tests/test_torch_card.py``, which imports no JAX)."""
 
     pca = (SparsePCABuilder().n_components(3)
            .svd_method(SVDMethod.random(10, 7, PIN.QR)).build())
     if torch.cuda.is_available():
-        with pytest.raises(NotImplementedError, match="'dense'.*ROADMAP"):
-            pca.fit_transform(counts)
+        assert pca.fit_transform(counts).device.type == "cuda"
         monkeypatch.setattr(tpca.DensifiedOperator, "hbm_budget_bytes",
                             staticmethod(lambda device: 0))
         assert pca.fit_transform(counts).device.type == "cuda"
@@ -312,7 +431,7 @@ def test_default_fit_runs_on_the_card_or_raises(counts, monkeypatch):
             pca.fit_transform(counts)
 
 
-@pytest.mark.parametrize("engine", ["gram", "tiled"])
+@pytest.mark.parametrize("engine", ["gram", "tiled", "dense"])
 def test_cpu_device_runs_both_engines(counts, engine):
     m = SparseMatrix.from_scipy(counts, device="cpu")
     T = (SparsePCABuilder().n_components(3).engine(engine)
