@@ -16,15 +16,14 @@
 // writes 251 MB (int8), 503 MB (bf16) or 1007 MB (f32). Nothing is
 // multiplied, so the bound is those bytes over the memory rate.
 //
-// Two kernels live here.
-//
-// densify_tile_kernel (wt <= 16, the shapes the Gram engine's main
-// buckets have). A block is 256 threads and owns one column tile and 256
-// consecutive slab rows; thread i owns row r0+i.
-//   1. The thread loads its row's WT (value, id) slots into registers,
-//      all 2*WT loads issued before the first use (WT is a template
-//      parameter, wt is rounded up to it with the extra slots masked), as
-//      coalesced 128-byte warp loads.
+// densify_tile_kernel, the kernel the port launches for every wt. A block
+// is 256 threads and owns one column tile and 256 consecutive slab rows;
+// thread i owns row r0+i.
+//   1. The thread loads its row's first WT (value, id) slots into
+//      registers, all 2*WT loads issued before the first use (WT is a
+//      template parameter in {4, 8, 16}, or 32 in the tail; wt is rounded
+//      up to it with the extra slots masked), as coalesced 128-byte warp
+//      loads.
 //   2. In registers it forms, for each slot, the float32 sum in slot
 //      order of the later slots with the same id (WT^2 compares), and
 //      marks the first slot of each id: that slot alone will write, once,
@@ -42,19 +41,30 @@
 //      overlaps the stores of this one. Row groups are the fastest grid
 //      dimension, so blocks that run together write neighbouring pieces
 //      of the same dense rows.
+// The tail, wt > 16 (the rare buckets of heavy rows; instantiated apart,
+// kTail, so that it costs the common widths no register): the row's slots
+// are taken 32 at a time. A group's sums also take in, still in slot
+// order, the same-id slots of the later groups, and a slot is first only
+// if no earlier group holds its id; those other groups' slots are read
+// again from memory (they sit in the cache: the block's payload is wt x
+// 2 KB). Group 0 stays in registers as above, so up to wt 32 nothing is
+// formed twice; each later group is formed again for every chunk and
+// scatters into the same staging buffer.
 // 32 KB of shared memory a block leaves room for 6 blocks (48 warps) an
 // SM, each warp with 2*WT loads in flight. Measured on an H100 at the
-// north-star slab: 81-84 % of the byte bound in every output type (the
-// one-warp kernel: 36 %, 62 % and 72 % for int8, bf16 and f32). Bulk
+// north-star slab: 81-84 % of the byte bound in every output type at wt 8
+// and 16 (the one-warp kernel: 36 %, 62 % and 72 % for int8, bf16 and
+// f32), and 58 %, 62 % and 73 % at wt 32, where the 226-254 registers of
+// the tail leave one block an SM (the one-warp kernel: 29-55 %). Bulk
 // asynchronous stores (cp.async.bulk shared -> global) in place of the
 // vector stores, and blocks of 128 rows, gave the same times within 8 %.
 //
-// densify_warp_kernel (any wt; the first version of this port). A block
-// is one warp with a float32 [ct][32] accumulator in shared memory; each
-// slot is one shared-memory add, in slot order; the tile is then read
-// back, cast and stored with 4-element vector stores. It serves buckets
-// wider than 16 slots (rare heavy rows) and is the reference the tile
-// kernel is held to bit for bit.
+// densify_warp_kernel is the first version of this port, kept as the
+// reference the tile kernel is held to bit for bit (its own entry point,
+// tiled_ell_densify_t_warp_f32; nothing of the package's paths launches
+// it). A block is one warp with a float32 [ct][32] accumulator in shared
+// memory; each slot is one shared-memory add, in slot order; the tile is
+// then read back, cast and stored with 4-element vector stores.
 //
 // Both drop ids outside [0, ct), sum duplicate ids in slot order in
 // float32 starting from +0, and saturate float -> int8 with NaN -> 0, so
@@ -91,7 +101,61 @@ constexpr int kBufBytes = 16384;  // one staging buffer; a block has two
 
 constexpr int kTileRows = 256;  // slab rows (and threads) per block
 
-template <typename OutT, int WT>
+// Slots [g0, g0 + WT) of one slab row (its slot 0 at `base`): for each, the
+// float32 sum in slot order of this and every later slot of the row with
+// the same id, and in `col` that id if the slot is the row's first with
+// it (else -1: the slot writes nothing). Ids outside [0, ct) are dropped,
+// as the one-hot drops them. With kTail the row may have slots outside
+// the group, which are read one by one; without it wt <= WT.
+template <int WT, bool kTail>
+__device__ __forceinline__ void group_sums(const float* __restrict__ tdata,
+                                           const int32_t* __restrict__ tlocal, long long base,
+                                           long long ld, int g0, int wt, int ct, bool live_row,
+                                           float (&s)[WT], int (&col)[WT]) {
+  // every load issued before the first use
+  float v[WT];
+  int id[WT];
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+    const bool live = live_row && g0 + w < wt;
+    const long long at = base + (long long)(g0 + w) * ld;
+    v[w] = live ? __ldg(tdata + at) : 0.f;
+    id[w] = live ? __ldg(tlocal + at) : -1;
+  }
+#pragma unroll
+  for (int w = 0; w < WT; ++w)
+    if ((unsigned)id[w] >= (unsigned)ct) id[w] = -1;
+#pragma unroll
+  for (int w = 0; w < WT; ++w) {
+    float acc = __fadd_rn(0.f, v[w]);  // the one-hot sum starts from +0
+    bool first = true;
+#pragma unroll
+    for (int u = 0; u < WT; ++u) {
+      if (u < w) first = first && (id[u] != id[w]);
+      if (u > w && id[u] == id[w]) acc = __fadd_rn(acc, v[u]);
+    }
+    s[w] = acc;
+    col[w] = first ? id[w] : -1;
+  }
+  if (kTail && live_row) {
+    for (int u = 0; u < g0; ++u) {  // earlier groups: is the id theirs?
+      const int idu = __ldg(tlocal + base + (long long)u * ld);
+#pragma unroll
+      for (int w = 0; w < WT; ++w)
+        if (idu == id[w]) col[w] = -1;
+    }
+    for (int u = g0 + WT; u < wt; ++u) {  // later groups: still in slot order
+      const long long at = base + (long long)u * ld;
+      const int idu = __ldg(tlocal + at);
+      const float vu = __ldg(tdata + at);
+#pragma unroll
+      for (int w = 0; w < WT; ++w)
+        if (idu == id[w]) s[w] = __fadd_rn(s[w], vu);
+    }
+  }
+}
+
+template <typename OutT, int WT, bool kTail>
 __global__ void __launch_bounds__(kTileRows)
     densify_tile_kernel(const float* __restrict__ tdata, const int32_t* __restrict__ tlocal,
                         OutT* __restrict__ out, long long ld, long long row_offset, int R,
@@ -105,37 +169,13 @@ __global__ void __launch_bounds__(kTileRows)
   const int r0 = blockIdx.x * RB;
   const int tid = threadIdx.x;
   const int valid = min(RB, R - r0);  // a multiple of 32
+  const bool live_row = tid < valid;
 
-  // 1. this row's slots of tile t: every load issued before the first use
-  float v[WT];
-  int id[WT];
+  // 1, 2. this row's first WT slots of tile t, and their sums per id
   const long long base = (long long)t * wt * ld + row_offset + r0 + tid;
-#pragma unroll
-  for (int w = 0; w < WT; ++w) {
-    const bool live = w < wt && tid < valid;
-    const long long at = base + (long long)w * ld;
-    v[w] = live ? __ldg(tdata + at) : 0.f;
-    id[w] = live ? __ldg(tlocal + at) : -1;
-  }
-
-  // 2. per id, the float32 sum in slot order; the first slot of an id keeps it
-#pragma unroll
-  for (int w = 0; w < WT; ++w)
-    if ((unsigned)id[w] >= (unsigned)ct) id[w] = -1;  // dropped, as the one-hot drops it
   float s[WT];
   int col[WT];
-#pragma unroll
-  for (int w = 0; w < WT; ++w) {
-    float acc = __fadd_rn(0.f, v[w]);  // the one-hot sum starts from +0
-    bool first = true;
-#pragma unroll
-    for (int u = 0; u < WT; ++u) {
-      if (u < w) first = first && (id[u] != id[w]);
-      if (u > w && id[u] == id[w]) acc = __fadd_rn(acc, v[u]);
-    }
-    s[w] = acc;
-    col[w] = first ? id[w] : -1;
-  }
+  group_sums<WT, kTail>(tdata, tlocal, base, ld, 0, wt, ct, live_row, s, col);
 
   // 3. the tile's columns, CC at a time, through the two staging buffers
   unsigned char* orow = reinterpret_cast<unsigned char*>(out + (long long)t * ct * R + r0);
@@ -156,6 +196,18 @@ __global__ void __launch_bounds__(kTileRows)
       const int c = col[w] - c0;
       if ((unsigned)c < (unsigned)CC) buf[c * RB + tid] = cast_out<OutT>(s[w]);
     }
+    if (kTail) {
+      for (int g0 = WT; g0 < wt; g0 += WT) {
+        float sg[WT];
+        int colg[WT];
+        group_sums<WT, true>(tdata, tlocal, base, ld, g0, wt, ct, live_row, sg, colg);
+#pragma unroll
+        for (int w = 0; w < WT; ++w) {
+          const int c = colg[w] - c0;
+          if ((unsigned)c < (unsigned)CC) buf[c * RB + tid] = cast_out<OutT>(sg[w]);
+        }
+      }
+    }
     __syncthreads();
     for (int j = tid; j < ncols * V; j += RB) {
       const int c = j / V, q = j % V;
@@ -164,12 +216,12 @@ __global__ void __launch_bounds__(kTileRows)
   }
 }
 
-template <typename OutT, int WT>
+template <typename OutT, int WT, bool kTail>
 cudaError_t launch_tile_wt(const float* tdata, const int32_t* tlocal, void* out, long long ld,
                            long long row_offset, int R, int wt, int ntiles, int ct,
                            cudaStream_t stream) {
   dim3 grid((R + kTileRows - 1) / kTileRows, ntiles);
-  densify_tile_kernel<OutT, WT><<<grid, kTileRows, 2 * kBufBytes, stream>>>(
+  densify_tile_kernel<OutT, WT, kTail><<<grid, kTileRows, 2 * kBufBytes, stream>>>(
       tdata, tlocal, static_cast<OutT*>(out), ld, row_offset, R, wt, ct);
   return cudaGetLastError();
 }
@@ -179,16 +231,19 @@ cudaError_t launch_tile(const float* tdata, const int32_t* tlocal, void* out, lo
                         long long row_offset, int R, int wt, int ntiles, int ct,
                         cudaStream_t stream) {
   if (wt <= 4)
-    return launch_tile_wt<OutT, 4>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
+    return launch_tile_wt<OutT, 4, false>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct,
+                                          stream);
   if (wt <= 8)
-    return launch_tile_wt<OutT, 8>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
+    return launch_tile_wt<OutT, 8, false>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct,
+                                          stream);
   if (wt <= 16)
-    return launch_tile_wt<OutT, 16>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct,
-                                    stream);
-  return cudaErrorInvalidValue;
+    return launch_tile_wt<OutT, 16, false>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles,
+                                           ct, stream);
+  return launch_tile_wt<OutT, 32, true>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct,
+                                        stream);
 }
 
-// -- the one-warp kernel: any wt ------------------------------------------------
+// -- the one-warp kernel: the reference ------------------------------------------------
 
 constexpr int kRows = 32;  // slab rows per block: one warp, one row each
 
@@ -257,37 +312,49 @@ cudaError_t launch_warp(const float* tdata, const int32_t* tlocal, void* out,
   return cudaGetLastError();
 }
 
-template <typename OutT>
-cudaError_t launch(int variant, const float* tdata, const int32_t* tlocal, void* out,
-                   long long ld, long long row_offset, int R, int wt, int ntiles, int ct,
-                   cudaStream_t stream) {
-  if (variant == 0)
-    return launch_warp<OutT>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
-  return launch_tile<OutT>(tdata, tlocal, out, ld, row_offset, R, wt, ntiles, ct, stream);
-}
-
 }  // namespace
 
-// out_kind: 0 = int8, 1 = bf16, 2 = f32. variant: 0 = the one-warp kernel
-// (any wt; 1 <= ct <= 1024, R / 32 <= 65535), else the tile kernel (wt <=
-// 16, ntiles <= 65535). The caller guarantees R % 32 == 0, contiguous
-// [ntiles*wt, ld] inputs and a contiguous 16-byte-aligned [ntiles*ct, R]
-// output. Returns the launch's cudaError_t (0 = launched).
+// out_kind: 0 = int8, 1 = bf16, 2 = f32. The caller guarantees R % 32 ==
+// 0, contiguous [ntiles*wt, ld] inputs and a contiguous 16-byte-aligned
+// [ntiles*ct, R] output. Returns the launch's cudaError_t (0 = launched).
+
+// The tile kernel: any wt >= 1, any ct >= 1, ntiles <= 65535.
 extern "C" int tiled_ell_densify_t_f32(const void* tdata, const void* tlocal,
                                        void* out, long long ld,
                                        long long row_offset, int R, int wt,
                                        int ntiles, int ct, int out_kind,
-                                       int variant, void* stream) {
+                                       void* stream) {
   const float* td = static_cast<const float*>(tdata);
   const int32_t* tl = static_cast<const int32_t*>(tlocal);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (out_kind) {
     case 0:
-      return launch<int8_t>(variant, td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+      return launch_tile<int8_t>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     case 1:
-      return launch<__nv_bfloat16>(variant, td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+      return launch_tile<__nv_bfloat16>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     case 2:
-      return launch<float>(variant, td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+      return launch_tile<float>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The one-warp reference kernel: any wt, 1 <= ct <= 1024, R / 32 <= 65535.
+extern "C" int tiled_ell_densify_t_warp_f32(const void* tdata, const void* tlocal,
+                                            void* out, long long ld,
+                                            long long row_offset, int R, int wt,
+                                            int ntiles, int ct, int out_kind,
+                                            void* stream) {
+  const float* td = static_cast<const float*>(tdata);
+  const int32_t* tl = static_cast<const int32_t*>(tlocal);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (out_kind) {
+    case 0:
+      return launch_warp<int8_t>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+    case 1:
+      return launch_warp<__nv_bfloat16>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
+    case 2:
+      return launch_warp<float>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,17 +21,18 @@ hand-written Hopper kernel of ``csrc/tiled_ell_densify.cu`` (built with
 ``nvcc`` for ``sm_90a`` on first use, bound with ctypes) or raises; on
 CPU tensors it runs :func:`tiled_ell_densify_t_plain`, the one-hot
 select-add of the TPU kernel in plain PyTorch. All give bit-identical
-results. The source holds two kernels (see its note): the tile kernel
-for ``wt <= 16`` (sums formed in registers, a staging tile in the output
-type, bulk asynchronous stores), and the one-warp kernel for any ``wt``
-(a float32 accumulator tile in shared memory), which serves wider
-buckets and is what :func:`tiled_ell_densify_t_warp` always launches, so
-the tile kernel can be held to it. The kernels take float32 payloads
-only: the Gram engine's host build always produces float32 payloads, and
-a float64 payload is refused rather than silently narrowed. The plain
-version also takes float64 (the tiled engine's float64 payloads on the
-CPU). The nvcc build, the ctypes loading and the launch counts are
-shared with the other kernels (``ops/cuda_lib.py``).
+results. The kernel (the tile kernel of the source's note) forms each
+id's sum in registers, stages the tile in the output type and writes it
+with 16-byte vector stores; rows wider than 16 slots are taken 16 slots
+at a time by the same kernel. :func:`tiled_ell_densify_t_warp` launches
+the port's first densify kernel (one warp a block, a float32 accumulator
+tile in shared memory): no path of the package calls it, it is the
+reference the kernel is held to on the card. The kernels take float32
+payloads only: the Gram engine's host build always produces float32
+payloads, and a float64 payload is refused rather than silently
+narrowed. The plain version also takes float64 (the tiled engine's
+float64 payloads on the CPU). The nvcc build, the ctypes loading and the
+launch counts are shared with the other kernels (``ops/cuda_lib.py``).
 """
 
 from __future__ import annotations
@@ -53,20 +54,18 @@ __all__ = [
 
 _OUT_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _ROW_MULTIPLE = 32  # slab rows come in whole warps
-MAX_COL_TILE = 1024  # one-warp kernel: [col_tile, 32] f32 accumulator = 128 KB
-TILE_KERNEL_MAX_WT = 16  # the tile kernel keeps a row's slots in registers
-_WARP_KERNEL, _TILE_KERNEL = 0, 1  # the C entry point's ``variant``
+MAX_COL_TILE = 1024  # the reference kernel's [col_tile, 32] f32 accumulator = 128 KB
 
 
 def _bind(lib) -> None:
-    fn = lib.tiled_ell_densify_t_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    for fn in (lib.tiled_ell_densify_t_f32, lib.tiled_ell_densify_t_warp_f32):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
 
 
 def _check(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows):
@@ -143,18 +142,19 @@ def tiled_ell_densify_t(
 ) -> torch.Tensor:
     """Densify slab ``[row_offset, row_offset + rows)`` of the payload to
     ``[ntiles * col_tile, rows]`` (see the module docs). CUDA tensors run
-    a Hopper kernel (the tile kernel up to ``wt`` 16, the one-warp kernel
-    above) and raise on anything it does not take; CPU tensors run
-    :func:`tiled_ell_densify_t_plain`."""
+    the Hopper kernel and raise on anything it does not take; CPU tensors
+    run :func:`tiled_ell_densify_t_plain`."""
 
     if tdata.device.type == "cpu" and tlocal.device.type == "cpu":
         return tiled_ell_densify_t_plain(
             tdata, tlocal, wt=wt, ntiles=ntiles, col_tile=col_tile,
             out_dtype=out_dtype, row_offset=row_offset, rows=rows,
         )
-    variant = _TILE_KERNEL if wt <= TILE_KERNEL_MAX_WT else _WARP_KERNEL
-    return _launch(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset,
-                   rows, variant)
+    out = _launch("tiled_ell_densify_t_f32", tdata, tlocal, wt, ntiles, col_tile,
+                  out_dtype, row_offset, rows)
+    if out.numel():
+        launch_counts["tiled_ell_densify_t"] += 1
+    return out
 
 
 def tiled_ell_densify_t_warp(
@@ -168,17 +168,17 @@ def tiled_ell_densify_t_warp(
     row_offset: int = 0,
     rows: int | None = None,
 ) -> torch.Tensor:
-    """:func:`tiled_ell_densify_t` through the one-warp kernel whatever
-    ``wt`` is (CUDA tensors only): the kernel the tile kernel is held to."""
+    """The same function through the port's first densify kernel (CUDA
+    tensors only): the reference :func:`tiled_ell_densify_t` is held to.
+    Its launches are not counted."""
 
-    return _launch(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset,
-                   rows, _WARP_KERNEL)
+    return _launch("tiled_ell_densify_t_warp_f32", tdata, tlocal, wt, ntiles,
+                   col_tile, out_dtype, row_offset, rows)
 
 
-def _launch(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows,
-            variant):
-    """Check the arguments, launch kernel ``variant`` on the tensors' card
-    and count the launch."""
+def _launch(entry, tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows):
+    """Check the arguments and launch the library's kernel ``entry`` on the
+    tensors' card."""
 
     if tdata.device.type != "cuda":
         raise ValueError(f"the densify kernels run on CUDA tensors, got {tdata.device}")
@@ -209,12 +209,11 @@ def _launch(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows,
     lib = cuda_lib.load("tiled_ell_densify", _bind)
     with torch.cuda.device(tdata.device):
         stream = cuda_lib.stream_of(tdata)
-        err = lib.tiled_ell_densify_t_f32(
+        err = getattr(lib, entry)(
             tdata.data_ptr(), tlocal.data_ptr(), out.data_ptr(),
             tdata.shape[1], row_offset, rows, wt, ntiles, col_tile,
-            _OUT_KIND[out_dtype], variant, stream,
+            _OUT_KIND[out_dtype], stream,
         )
     if err != 0:
-        raise RuntimeError(f"tiled_ell_densify_t launch failed: cudaError {err}")
-    launch_counts["tiled_ell_densify_t"] += 1
+        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
     return out

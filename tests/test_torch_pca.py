@@ -286,7 +286,9 @@ def assert_lanczos_models_match(tp, T, jp, Tj, counts, k):
 
 def test_lanczos_on_tiled_names_its_roadmap_item(counts):
     """The Lanczos method on the tiled engine, scalar and block: it runs
-    and gives the JAX package's model."""
+    and gives the JAX package's model. (The name dates from when this call
+    raised ``NotImplementedError`` naming its roadmap item; the case is
+    kept under it.)"""
 
     for block in (None, 4):
         tp, T, jp, Tj = fit_lanczos_both(counts, "tiled", k=3, block=block)
