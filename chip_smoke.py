@@ -3,7 +3,8 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py    # ~10 minutes: north star, densified path, tiled path
+    python3 chip_smoke.py    # ~12 minutes: north star, the preprocessing and masked-PCA
+                             # pipeline, densified path, tiled path
 
 Phases, one JSON line each:
 
@@ -93,10 +94,45 @@ Phases, one JSON line each:
 12. ``library``: one PyTorch call per kernel that computes the same
    function, timed with CUDA events and used nowhere in the port: the
    float32 CSR ``.to_dense()`` of one 8,192-row north-star slab
-   (densify), float32 ``torch.sparse_csr_tensor`` products ``X @ B`` and
-   ``X^T @ C`` at kp 64 on the tiled path's matrix (spmm, rmv; bf16 too
-   where torch takes it). ``tiled_bounds``: the stored slots of the
-   engine's payload and the kernels' bounds.
+   (densify; its bf16 form too), float32 ``torch.sparse_csr_tensor``
+   products ``X @ B`` and ``X^T @ C`` at kp 64 and 8 on the tiled path's
+   matrix (spmm, rmv; bf16 too where torch takes it). ``tiled_bounds``:
+   the stored slots of the engine's payload and the kernels' bounds.
+
+The reference crate's preprocessing and masked-PCA pipeline, on the north
+star's counts (after ``main_path``) and the tiled path's matrix:
+
+13. ``stats``: both device padded-ELL layouts (host build, upload, widths,
+   bytes: ``stats_layouts``), then every statistic per axis (nonzero,
+   sum, sum of squares, variance, min / max, their masked forms with a
+   seeded half mask, ``mean_batch_col`` / ``var_batch_row`` over the 64
+   generator clusters, ``sum_row_n_top(50)``), timed beside its bound and
+   held to float64 from the host CSR arrays: counts and min / max exact,
+   the others at most 1e-6 of the largest |truth|.
+14. ``pipeline`` (this slice's main path): ``sum_row`` -> ``normalize(lib,
+   1e4, ROW)`` -> ``log1p_normalize`` -> the top 2,000 columns of
+   ``var_col`` -> ``MaskedSparsePCABuilder``'s defaults (Lanczos, 'auto')
+   cold and warm, then ``SVDMethod.random(10, 7, QR)`` on the cached
+   engine. The engine must be ``GramPCAEngine`` on its float32 tier, with
+   float32 densify slabs in its Gram pass (launches by output type,
+   counted from 0). ``pipeline_ev``: stored values against a float64
+   recompute (fail above 1e-6 relative, per value), the Lanczos EVs
+   against the float64 UNCENTERED truth of the masked Gram and the
+   randomized EVs against its CENTERED truth (fail above 1e-5), from one
+   float64 Gram of the log-normalized matrix. ``log1p_ulp``: torch.log1p
+   on the card over the normalized values, fail above 3 ULP.
+15. ``sparse_engine``: ``engine("sparse")`` (``SparseOperator``) on the
+   log-normalized matrix, ``lanczos_block(8)`` and the defaults, against
+   the float64 uncentered truth (fail above 1e-5); its products at k 1, 8
+   and 64 against float64 CSR products (1e-5), beside their bound and one
+   float32 ``torch.sparse_csr_tensor`` product.
+16. ``similarity``: cosine, euclidean and pearson ``pairwise`` over the
+   first 50,000 rows of the pipeline's scores, manhattan and jaccard over
+   5,000, timed beside their bound and held to float64 on 1,024 rows.
+17. ``masked_tiled`` (inside the tiled path): ``MaskedSparsePCABuilder``
+   with ``lanczos_block(8)`` on the tiled engine through
+   ``MaskedOperator``, both kernels' launches counted from 0, EVs against
+   the float64 uncentered truth of ``X[:, mask]`` (fail above 1e-5).
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
@@ -130,6 +166,14 @@ DENSE_CELLS, DENSE_GENES = 400_000, 30_000  # the densified path: dense bf16 24 
 DENSE_LO_CELLS = 200_000  # its non-bf16-exact variant: hi + lo, 12 GB each
 RANDOMIZED_TRUTH_FAIL = 5e-3  # the q = 7 A-space sketch against the centered f64 truth
 KERNEL_REL_FAIL = 1e-5  # spmm / rmv kernel vs plain, relative to max |plain|
+HVG = 2_000  # the pipeline's mask: the top columns of var_col (stands in for HVG selection)
+NORM_TARGET = 1e4  # normalize's target row sum
+STAT_REL_FAIL = 1e-6  # sum-type statistics vs float64, of the largest |truth|
+VALUE_REL_FAIL = 1e-6  # log-normalized values vs a float64 recompute, per value
+LOG1P_ULP_FAIL = 3.0  # the precise-log1p bound of tests/test_precise_math.py
+SIM_ROWS, SIM_L1_ROWS, SIM_CHECK_ROWS = 50_000, 5_000, 1_024
+SIM_FAIL = 1e-5
+DEVICE = "cuda"  # where the pipeline phases put their matrices and operands
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 
@@ -395,15 +439,23 @@ def f64_topk(torch, G, k: int):
     return ritz, it + 1
 
 
-def f64_truth_ev(torch, X, k: int, chunk: int = 4096, device="cuda", uncentered=False):
+def f64_truth_ev(torch, X, k: int, chunk: int = 4096, device="cuda", uncentered=False,
+                 cols=None, gram=None):
     """Top-k explained variances in float64 from the dense float64 Gram:
     of the centered matrix -> (ev, iterations), or with ``uncentered`` of
     both the raw matrix (what the Lanczos method solves: s^2 / (n - 1))
     and the centered one, from one Gram -> (ev_raw, ev_centered,
-    iterations of each)."""
+    iterations of each). ``cols`` restricts both to a column subset (a
+    submatrix of the Gram); ``gram`` = ``f64_gram``'s (G, mu), computed
+    once by the caller and left as it is (with ``cols``)."""
 
     n = X.shape[0]
-    G, mu = f64_gram(torch, X, chunk, device)
+    G, mu = f64_gram(torch, X, chunk, device) if gram is None else gram
+    if cols is not None:
+        idx = torch.as_tensor(cols, device=G.device)
+        G, mu = G[idx][:, idx], mu[idx]  # copies
+    elif gram is not None:
+        raise ValueError("a shared Gram is centered in place: pass cols")
     raw = f64_topk(torch, G, k) if uncentered else None
     G.addr_(mu, mu, alpha=-n)  # centered in place: no [p, p] temporaries
     ritz, iters = f64_topk(torch, G, k)
@@ -606,7 +658,7 @@ def phase_main_path(torch, held_widths) -> tuple:
     )
     if not ev_rel_err <= EV_FAIL:
         raise AssertionError(f"EV rel err {ev_rel_err} > {EV_FAIL}")
-    return launches, library_densify_ms(torch, X)
+    return launches, library_densify_ms(torch, X), X
 
 
 def _ev_rel_err(ev, ev_true) -> float:
@@ -827,6 +879,15 @@ def library_densify_ms(torch, X, slab: int = 8192) -> float:
     ms = _time_ms(torch, lambda: A.to_dense(), 10)
     emit("library", kernel="tiled_ell_densify_t", call="float32 CSR [8192, p].to_dense()",
          shape=list(A.shape), ms=ms)
+    # the bf16 slab's yardstick: the slab densified to bf16 (a bf16 CSR's
+    # own to_dense where torch takes it, else the float32 one, cast)
+    Ab = A.to(torch.bfloat16)
+    try:
+        bf16_ms, call = _time_ms(torch, lambda: Ab.to_dense(), 10), "bfloat16 CSR .to_dense()"
+    except (RuntimeError, NotImplementedError):
+        bf16_ms = _time_ms(torch, lambda: A.to_dense().to(torch.bfloat16), 10)
+        call = "float32 CSR .to_dense().to(bfloat16)"
+    emit("library", kernel="tiled_ell_densify_t", out_dtype="bfloat16", call=call, ms=bf16_ms)
     return ms
 
 
@@ -835,7 +896,8 @@ def library_tiled_ms(torch, X, kp: int = 64) -> dict:
     path's matrix (CUDA events): ``X @ B`` with X a float32
     ``torch.sparse_csr_tensor`` and B [p, kp], and ``X^T @ C`` with the CSR
     of X^T built beforehand and C [n, kp]; bf16 too where torch's CUDA CSR
-    product takes it. -> {kernel: float32 ms}."""
+    product takes it, and the float32 products at kp 8 (the Lanczos
+    solvers' shape). -> {kernel: float32 ms at kp}."""
 
     n, p = X.shape
     gen = torch.Generator(device="cuda")
@@ -854,6 +916,10 @@ def library_tiled_ms(torch, X, kp: int = 64) -> dict:
                  f"dense {list(D.shape)}", ms=ms, refused=err)
             if dtype == torch.float32:
                 out[name] = ms
+                D8 = D[:, :8].contiguous()
+                emit("library", kernel=name, call=f"float32 CSR {list(A.shape)} @ dense "
+                     f"{list(D8.shape)}", kp=8, ms=_time_ms(torch, lambda: A @ D8, 3))
+                del D8
             del A, D
             torch.cuda.empty_cache()
     return out
@@ -881,12 +947,14 @@ def _tiled_payload(torch, gen, R, ntiles, wt, ct, *, dtype, frac, dup=False, pad
 
 
 def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, odt,
-                   pad=0, plain_reps=2, rmv=True) -> None:
+                   pad=0, rmv=True) -> None:
     """Both tiled kernels (spmm alone where ``rmv`` is false) against their
     plain versions on one payload with a random operand of dtype ``odt``:
     emits a ``kernel_spmm`` and a ``kernel_rmv`` line, fails above
     KERNEL_REL_FAIL or where a repeated launch differs, and folds the
-    worst abs error into ``result``."""
+    worst abs error into ``result``. The plain version's time is that of
+    the comparison call itself (CUDA events; it takes seconds on the
+    path's payload, so it runs once)."""
 
     from single_algebra_tpu_torch.ops.spmm_kernel import (
         tiled_ell_rmv_t, tiled_ell_rmv_t_plain, tiled_ell_spmm_t, tiled_ell_spmm_t_plain,
@@ -900,8 +968,13 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
     )[:2 if rmv else 1]:
         op = torch.randn((kp, width), generator=gen, device=vals.device).to(odt)
         got = fn(vals, ids, op, **kw)
-        want = plain(vals, ids, op, **kw)
         torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(vals, ids, op, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
         abs_err = float((got - want).abs().max())
         rel = abs_err / float(want.abs().max())
         del want
@@ -909,7 +982,6 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
         pad_zero = bool(not got[:, :pad].any()) if pad and phase == "kernel_spmm" else None
         del got
         ms = _time_ms(torch, lambda: fn(vals, ids, op, **kw), 10)
-        plain_ms = _time_ms(torch, lambda: plain(vals, ids, op, **kw), plain_reps)
         emit(phase, case=case, wt=wt, payload=str(vals.dtype).split(".")[-1],
              operand=str(odt).split(".")[-1], R=R, ntiles=ntiles, col_tile=ct, kp=kp,
              rel_err=rel, max_abs_err=abs_err, repeat_equal=repeat_equal,
@@ -970,7 +1042,7 @@ def phase_kernel_tiled_path(torch, op, result: dict) -> None:
                                ("path_bf16_x_f32_kp56", torch.float32, 56, False),
                                ("path_bf16_x_f32_kp8", torch.float32, 8, True)):
         _compare_tiled(torch, result, gen, case, op.tdata, op.tlocal, wt=wt, ntiles=ntiles,
-                       ct=ct, kp=kp, odt=odt, plain_reps=1, rmv=rmv)
+                       ct=ct, kp=kp, odt=odt, rmv=rmv)
     for entry in result.values():
         entry.update(entry["cases"]["path_bf16_x_bf16"])
     # bounds of the bf16 x bf16 case at kp 64: each input read once, each
@@ -993,7 +1065,7 @@ class Csr64Operator:
     matrix and its transpose): an operator independent of the port's
     payloads and kernels, whose products are exact to float64."""
 
-    def __init__(self, torch, X, device):
+    def __init__(self, torch, X, device, Xt=None):
         import numpy as np
 
         def csr(M):
@@ -1007,7 +1079,7 @@ class Csr64Operator:
         self.dtype = torch.float64
         self.device = torch.device(device)
         self.a = csr(X.tocsr())
-        self.at = csr(X.tocsc().T.tocsr())
+        self.at = csr(X.tocsc().T.tocsr() if Xt is None else Xt)
 
     def mv(self, B):
         return self.a @ B
@@ -1108,6 +1180,7 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     emit("tiled_idle", warm_fit_transform=device_idle(
         torch, lambda: builder().build().fit_transform(m), top=8))
     lanczos = phase_tiled_lanczos(torch, m, k)
+    phase_masked_tiled(torch, m, X)
     phase_kernel_tiled_path(torch, op, kernel_result)
     for name, ms in library_tiled_ms(torch, X).items():
         kernel_result[name]["library_ms"] = ms
@@ -1248,6 +1321,543 @@ def phase_tiled_breakdown(torch, op, ell_spmm) -> None:
     emit("tiled_breakdown", kp=64, ms=times)
 
 
+# --------------------------------------------------------------------------
+# the reference crate's preprocessing and masked-PCA pipeline
+# --------------------------------------------------------------------------
+
+
+def _line_truth(indptr, indices, vals, n_lines: int, minor_mask):
+    """float64 per-line statistics of host CSR arrays (the independent
+    side of the ``stats`` bars): count, sum, sum of squares, min, max over
+    the stored entries, and the same count / sums over the entries whose
+    minor index is masked in; ``line``: each entry's line."""
+
+    import numpy as np
+
+    count = np.diff(indptr)
+    line = np.repeat(np.arange(n_lines, dtype=np.int64), count)
+    v = vals.astype(np.float64)
+    v2 = v * v
+    keep = minor_mask[indices].astype(np.float64)
+    out = dict(count=count, line=line, sum=np.bincount(line, v, n_lines),
+               sumsq=np.bincount(line, v2, n_lines),
+               count_m=np.bincount(line, keep, n_lines).astype(np.int64))
+    v *= keep
+    v2 *= keep
+    out.update(sum_m=np.bincount(line, v, n_lines), sumsq_m=np.bincount(line, v2, n_lines))
+    big = float(np.finfo(np.float32).max)
+    mins, maxs = np.full(n_lines, big), np.full(n_lines, -big)
+    full = count > 0
+    mins[full] = np.minimum.reduceat(vals, indptr[:-1][full])  # exact in the stored dtype
+    maxs[full] = np.maximum.reduceat(vals, indptr[:-1][full])
+    out.update(min=mins, max=maxs)
+    return out
+
+
+def _stored_var64(count, s, sq):
+    import numpy as np
+
+    c = np.maximum(count, 1)
+    return np.where(count > 0, np.maximum(sq / c - (s / c) ** 2, 0.0), 0.0)
+
+
+def _bessel64(s, sq, n):
+    mean = s / n
+    return (sq / n - mean * mean) * n / (n - 1)
+
+
+def _top_n_truth(indptr, vals, rows: int, n_top: int):
+    """float64 sum of the n largest stored values of the first ``rows``
+    lines (host, through a padded copy of those lines)."""
+
+    import numpy as np
+
+    count = np.diff(indptr[: rows + 1])
+    width = int(count.max())
+    pad = np.full((rows, width), -np.inf)
+    line = np.repeat(np.arange(rows), count)
+    pos = np.arange(int(indptr[rows])) - indptr[line]
+    pad[line, pos] = vals[: int(indptr[rows])]
+    if width > n_top:
+        pad = -np.partition(-pad, n_top - 1, axis=1)[:, :n_top]
+    return np.where(np.isfinite(pad), pad, 0.0).sum(axis=1)
+
+
+def phase_stats(torch, X):
+    """BASELINE config #1 on the north star's counts: both device layouts
+    (host ELL build, upload: times, widths, bytes), then every statistic
+    per axis timed (CUDA events) beside its bound (the ELL arrays it reads
+    and its output over 3.35 TB/s) and held to float64 truths from the
+    host CSR arrays: counts and min / max exactly, the others at most
+    1e-6 of the largest |truth|. -> the matrix, both layouts cached."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import SparseMatrix
+
+    n, p = X.shape
+    m = SparseMatrix.from_scipy(X, device=DEVICE)
+    t0 = time.perf_counter()
+    col = m.transpose()
+    transpose_s = time.perf_counter() - t0
+    layouts = {}
+    for name, lay in (("row", m), ("col", col)):
+        arrays = lay._device_layout()
+        layouts[name] = dict(width=lay.ell_width, lines=int(arrays[0].shape[0]),
+                             bytes=sum(a.numel() * a.element_size() for a in arrays),
+                             build_s=lay.ell_build_seconds)
+    layouts["col"]["host_transpose_s"] = transpose_s
+    emit("stats_layouts", n=n, p=p, nnz=m.nnz, **layouts)
+
+    rng = np.random.default_rng(12)
+    row_mask, col_mask = rng.random(n) < 0.5, rng.random(p) < 0.5
+    t0 = time.perf_counter()
+    tr = _line_truth(m._h_indptr, m._h_indices, m._h_data, n, col_mask)
+    tc = _line_truth(col._h_indptr, col._h_indices, col._h_data, p, row_mask)
+    sizes = np.full(64, n // 64)
+    sizes[: n % 64] += 1
+    labels = np.repeat(np.arange(64), sizes)  # the generator's row clusters
+    bins = tc.pop("line") * 64
+    bins += labels[col._h_indices]
+    del tr["line"]
+    v = col._h_data.astype(np.float64)
+    bs = np.bincount(bins, v, p * 64).reshape(p, 64)
+    bsq = np.bincount(bins, v * v, p * 64).reshape(p, 64)
+    bc = np.bincount(bins, minlength=p * 64).reshape(p, 64)
+    del bins, v
+    n_top_rows = min(n, 50_000)
+    truth_s = time.perf_counter() - t0
+
+    def lay_bytes(lay, *parts):
+        d, i, z = lay._device_layout()
+        sizes = dict(data=d.numel() * d.element_size(), ids=i.numel() * 4, nnz=z.numel() * 4)
+        return sum(sizes[part] for part in parts)
+
+    R, C = (m, n), (col, p)  # the layout of a line statistic, and its length
+    batch_list = labels.tolist()
+    cases = (  # name, call, truth, exact?, layout, arrays read, outputs per line
+        ("nonzero_row", lambda: m.nonzero_row(), tr["count"], True, R, ("nnz",), 1),
+        ("nonzero_col", lambda: m.nonzero_col(), tc["count"], True, C, ("nnz",), 1),
+        ("sum_row", lambda: m.sum_row(), tr["sum"], False, R, ("data",), 1),
+        ("sum_col", lambda: m.sum_col(), tc["sum"], False, C, ("data",), 1),
+        ("sum_row_squared", lambda: m.sum_row_squared(), tr["sumsq"], False, R, ("data",), 1),
+        ("sum_col_squared", lambda: m.sum_col_squared(), tc["sumsq"], False, C, ("data",), 1),
+        ("var_row", lambda: m.var_row(), _bessel64(tr["sum"], tr["sumsq"], p), False, R,
+         ("data",), 1),
+        ("var_col", lambda: m.var_col(), _bessel64(tc["sum"], tc["sumsq"], n), False, C,
+         ("data",), 1),
+        ("min_row", lambda: m.min_max_row()[0], tr["min"], True, R, ("data", "nnz"), 2),
+        ("max_row", lambda: m.min_max_row()[1], tr["max"], True, R, ("data", "nnz"), 2),
+        ("min_col", lambda: m.min_max_col()[0], tc["min"], True, C, ("data", "nnz"), 2),
+        ("max_col", lambda: m.min_max_col()[1], tc["max"], True, C, ("data", "nnz"), 2),
+        ("nonzero_row_masked", lambda: m.nonzero_row_masked(col_mask), tr["count_m"], True, R,
+         ("ids", "nnz"), 1),
+        ("nonzero_col_masked", lambda: m.nonzero_col_masked(row_mask), tc["count_m"], True, C,
+         ("ids", "nnz"), 1),
+        ("sum_row_masked", lambda: m.sum_row_masked(col_mask), tr["sum_m"], False, R,
+         ("data", "ids", "nnz"), 1),
+        ("sum_col_masked", lambda: m.sum_col_masked(row_mask), tc["sum_m"], False, C,
+         ("data", "ids", "nnz"), 1),
+        ("var_row_masked", lambda: m.var_row_masked(col_mask),
+         _stored_var64(tr["count_m"], tr["sum_m"], tr["sumsq_m"]), False, R,
+         ("data", "ids", "nnz"), 1),
+        ("var_col_masked", lambda: m.var_col_masked(row_mask),
+         _stored_var64(tc["count_m"], tc["sum_m"], tc["sumsq_m"]), False, C,
+         ("data", "ids", "nnz"), 1),
+        ("mean_batch_col", lambda: m.mean_batch_col(batch_list), bs / sizes[None, :], False, C,
+         ("data", "ids"), 64),
+        ("var_batch_row", lambda: m.var_batch_row(batch_list),
+         np.where(bc > 1, (bsq - bs * bs / np.maximum(bc, 1)) / np.maximum(bc - 1, 1), 0.0),
+         False, C, ("data", "ids", "nnz"), 64),
+        ("sum_row_n_top_50", lambda: m.sum_row_n_top(50),
+         _top_n_truth(m._h_indptr, m._h_data.astype(np.float64), n_top_rows, 50), False, R,
+         ("data", "nnz"), 1),
+    )
+    failed = []
+    for name, call, truth, exact, (lay, n_lines), parts, per_line in cases:
+        got = call()
+        torch.cuda.synchronize()
+        if isinstance(got, dict):  # batch statistics: one column per batch, in label order
+            got = torch.stack([got[b] for b in range(64)], dim=1)
+        got = got.double().cpu().numpy()[: len(truth)]
+        if exact:
+            err = float(np.abs(got - truth).max())
+            ok = err == 0.0
+        else:
+            err = float(np.abs(got - truth).max() / np.abs(truth).max())
+            ok = err <= STAT_REL_FAIL
+        ms = _time_ms(torch, call, 3)
+        bd = bound(lay_bytes(lay, *parts) + n_lines * per_line * 4)
+        emit("stats", stat=name, ms=ms, **bd, share_of_bound=bd["bound_ms"] / ms,
+             exact=exact, err=err, fail_above=0.0 if exact else STAT_REL_FAIL,
+             rows_checked=len(truth))
+        if not ok:
+            failed.append((name, err))
+    emit("stats_truth", host_float64_s=truth_s, n_top_rows_checked=n_top_rows,
+         mask="seeded half of the rows / columns", batches="the 64 generator clusters")
+    if failed:
+        raise AssertionError(f"statistics off their float64 truth: {failed}")
+    return m
+
+
+def _top_mask(torch, values, n_keep: int):
+    """Bool mask of the ``n_keep`` largest entries (a stand-in for
+    highly-variable-gene selection)."""
+
+    mask = torch.zeros(values.shape[0], dtype=torch.bool, device=values.device)
+    mask[torch.topk(values, n_keep).indices] = True
+    return mask
+
+
+def phase_pipeline(torch, m) -> dict:
+    """This slice's main path, the reference crate's pipeline, on the
+    north star's counts ``m`` (both layouts cached by ``stats``):
+    ``sum_row`` -> ``normalize(lib, 1e4, ROW)`` -> ``log1p_normalize`` ->
+    the top 2,000 columns of ``var_col`` -> ``MaskedSparsePCABuilder``'s
+    defaults (Lanczos, engine 'auto') cold and warm, then the randomized
+    method on the cached engine. The engine must be ``GramPCAEngine`` on
+    its float32 tier, with float32 densify slabs in its Gram pass. Bars:
+    stored values against a float64 recompute (1e-6 relative, per value),
+    the Lanczos EVs against the float64 UNCENTERED masked truth and the
+    randomized EVs against the CENTERED masked truth (1e-5 each), both
+    from one float64 Gram of the log-normalized matrix. Also
+    ``log1p_ulp``. -> what the next phases reuse."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from single_algebra_tpu_torch import Direction, MaskedSparsePCABuilder
+    from single_algebra_tpu_torch.linalg.gram import GramPCAEngine, _slab_for, gram_matrix
+    from single_algebra_tpu_torch.ops import cuda_lib
+    from single_algebra_tpu_torch.types import PowerIterationNormalizer, SVDMethod
+
+    n, p = m.shape
+    k = K
+
+    def step(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    lib, lib_s = step(lambda: m.sum_row())
+    Xn, norm_s = step(lambda: m.normalize(lib, NORM_TARGET, Direction.ROW))
+    Xl, log_s = step(lambda: Xn.log1p_normalize())
+    mask, mask_s = step(lambda: _top_mask(torch, Xl.var_col(), HVG))
+    mask_np = mask.cpu().numpy()
+    phase_log1p_ulp(torch, Xn)
+    del Xn, lib
+
+    def builder():
+        return MaskedSparsePCABuilder().mask(mask_np).n_components(k)
+
+    def fit(make):
+        pca = make.build()
+        return pca, pca.fit_transform(Xl)
+
+    cuda_lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (pca, T), cold_s = step(lambda: fit(builder()))
+    launches = dict(cuda_lib.densify_launches_by_dtype)
+    peak = torch.cuda.max_memory_allocated()
+    eng = Xl._operator_cache.get("auto")
+    (pca_w, T_w), warm_s = step(lambda: fit(builder()))
+    (pca_r, _), rand_s = step(lambda: fit(builder().svd_method(
+        SVDMethod.random(10, 7, PowerIterationNormalizer.QR))))
+    if not isinstance(eng, GramPCAEngine):
+        raise AssertionError(f"engine 'auto' built {type(eng).__name__}, not GramPCAEngine")
+    tier = "int8" if eng.meta[4] else ("bf16" if eng.meta[3] else "f32")
+    slab = _slab_for(n)
+    slabs = sum(rc // slab for _, rc in eng.bwidths)
+    if tier != "f32" or launches != {"float32": 2 * slabs}:
+        raise AssertionError(f"tier {tier}, densify launches {launches}: want f32 and "
+                             f"{2 * slabs} float32 slabs (Gram pass + projection)")
+    if tuple(T.shape) != (n, k) or not bool(torch.isfinite(T).all()):
+        raise AssertionError(f"scores: shape {tuple(T.shape)}, not finite or misshapen")
+    warm_vs_cold = float((T_w - T).abs().max() / T.abs().max())
+    del T_w
+
+    # the Gram pass alone: its densify launches by output type, and the
+    # densify kernel alone over the same slabs
+    cuda_lib.reset_launch_counts()
+    _, gram_s = step(lambda: gram_matrix(eng))
+    gram_launches = dict(cuda_lib.densify_launches_by_dtype)
+    if gram_launches != {"float32": slabs}:
+        raise AssertionError(f"Gram pass densify launches {gram_launches}, want {slabs} float32")
+    def densify_all():
+        for b, (_, rc) in enumerate(eng.bwidths):
+            for i in range(rc // slab):
+                eng._densify(b, i, torch.float32)  # each slab is dropped before the next
+
+    _, densify_s = step(densify_all)
+    emit("pipeline", n=n, p=p, nnz=m.nnz, hvg=HVG, engine=type(eng).__name__, gram_tier=tier,
+         col_tile=eng.meta[2], buckets=[list(b) for b in eng.bwidths],
+         steps_s=dict(sum_row=lib_s, normalize=norm_s, log1p_normalize=log_s,
+                      var_col_top_mask=mask_s),
+         cold_fit_transform_s=cold_s, warm_fit_transform_s=warm_s,
+         randomized_warm_fit_transform_s=rand_s, warm_vs_cold_rel=warm_vs_cold,
+         fit_timings_cold=pca._fit_timings, engine_build_s=eng.build_seconds,
+         values_pull_s=Xl.pull_seconds,
+         densify_launches_cold=launches, gram_pass_s=gram_s,
+         gram_pass_densify_launches=gram_launches, densify_f32_all_slabs_s=densify_s,
+         peak_alloc_gb=peak / 1e9, T_shape=list(T.shape))
+
+    # bars: the stored values against a float64 recompute from the counts
+    t0 = time.perf_counter()
+    vals = Xl._csr_data_host()
+    row_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(m._h_indptr))
+    c64 = m._h_data.astype(np.float64)
+    rs = np.bincount(row_of, c64, n)
+    fac = (NORM_TARGET / np.where(rs > 0, rs, 1.0))[row_of]
+    v64 = np.log1p(np.where(rs[row_of] > 0, c64 * fac, c64))
+    del row_of, c64, fac
+    value_err = float((np.abs(vals - v64) / np.abs(v64)).max())
+    del v64
+    recompute_s = time.perf_counter() - t0
+    Xl64 = sp.csr_matrix((vals.astype(np.float64), m._h_indices, m._h_indptr), shape=(n, p))
+    t0 = time.perf_counter()
+    gram = f64_gram(torch, Xl64, device=DEVICE)
+    gram_s64 = time.perf_counter() - t0
+    idx = np.where(mask_np)[0]
+    ev_raw, ev_cen, iters = f64_truth_ev(torch, Xl64, k, uncentered=True, cols=idx, gram=gram)
+    errs = dict(lanczos_cold=_ev_rel_err(pca.explained_variance_, ev_raw),
+                lanczos_warm=_ev_rel_err(pca_w.explained_variance_, ev_raw),
+                randomized=_ev_rel_err(pca_r.explained_variance_, ev_cen))
+    emit("pipeline_ev", value_rel_err=value_err, value_fail_above=VALUE_REL_FAIL,
+         value_recompute_s=recompute_s, ev_rel_err=errs, ev_fail_above=EV_FAIL,
+         truth="float64 Gram of the log-normalized matrix: its masked submatrix, "
+               "uncentered (Lanczos) and centered (randomized)", f64_gram_s=gram_s64,
+         ev_top3=np.asarray(pca.explained_variance_)[:3].tolist(),
+         ev_raw_true_top3=ev_raw[:3].tolist(), ev_centered_true_top3=ev_cen[:3].tolist())
+    if not value_err <= VALUE_REL_FAIL:
+        raise AssertionError(f"log-normalized values rel err {value_err} > {VALUE_REL_FAIL}")
+    if not max(errs.values()) <= EV_FAIL:
+        raise AssertionError(f"masked PCA EV rel err {errs} > {EV_FAIL}")
+    Xl._operator_cache.clear()  # the Gram engine; the layouts stay for sparse_engine
+    return dict(Xl=Xl, Xl64=Xl64, gram=gram, T=T)
+
+
+def phase_log1p_ulp(torch, Xn) -> None:
+    """``torch.log1p`` on the card over the normalized matrix's stored
+    values, in ULPs of the float32 result against float64: the bound
+    ``tests/test_precise_math.py`` holds the JAX package's precise log1p
+    to (< 3 ULP) decides whether the port needs that module."""
+
+    from single_algebra_tpu_torch.ops.stats import valid_mask
+
+    d, ids, row_nnz = Xn._device_layout()
+    v = d[valid_mask(ids, row_nnz)]
+    y64 = torch.log1p(v.double())
+    ref = y64.float().abs()
+    ulp = (torch.log1p(v).double() - y64).abs() / (
+        torch.nextafter(ref, torch.full_like(ref, float("inf"))) - ref).double()
+    worst = float(ulp.max())
+    emit("log1p_ulp", values=v.numel(), value_range=[float(v.min()), float(v.max())],
+         max_ulp=worst, mean_ulp=float(ulp.mean()), fail_above=LOG1P_ULP_FAIL)
+    if not worst <= LOG1P_ULP_FAIL:
+        raise AssertionError(f"torch.log1p on the card: {worst} ULP > {LOG1P_ULP_FAIL}")
+
+
+def phase_sparse_engine(torch, ctx: dict) -> None:
+    """The gather engine (``SparseOperator``, ``engine("sparse")``) on the
+    pipeline's log-normalized matrix (its ELL layouts cached):
+    ``lanczos_block(8)`` and the builder's defaults, held to the float64
+    truth of the UNCENTERED Gram's top 50 (fail above 1e-5). Then its
+    products ``mv`` / ``rmv`` at k 1, 8 and 64, timed beside their bound
+    and one float32 ``torch.sparse_csr_tensor`` product, held to float64
+    CSR products (fail above 1e-5 of max |truth|)."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from single_algebra_tpu_torch import SparsePCABuilder
+    from single_algebra_tpu_torch.linalg.operators import SparseOperator
+
+    Xl, Xl64 = ctx["Xl"], ctx["Xl64"]
+    n, p = Xl.shape
+    G, _ = ctx.pop("gram")
+    ritz, iters = f64_topk(torch, G, K)
+    ev_true = (ritz / (n - 1)).cpu().numpy()
+    del G, ritz
+    torch.cuda.empty_cache()
+
+    worst = 0.0
+    for name, block in (("lanczos_block_8", 8), ("default_builder", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pca = SparsePCABuilder().n_components(K).engine("sparse").lanczos_block(block).build()
+        T = pca.fit_transform(Xl)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        op = Xl._operator_cache.get("sparse")
+        if not isinstance(op, SparseOperator):
+            raise AssertionError(f"engine 'sparse' built {type(op).__name__}")
+        if tuple(T.shape) != (n, K) or not bool(torch.isfinite(T).all()):
+            raise AssertionError(f"sparse engine scores: shape {tuple(T.shape)}")
+        err = _ev_rel_err(pca.explained_variance_, ev_true)
+        worst = max(worst, err)
+        emit("sparse_engine", method=name, n=n, p=p, fit_transform_s=seconds,
+             steps=pca.lanczos_steps_taken_, fit_timings=pca._fit_timings,
+             row_ell_width=op.row_data.shape[1], col_ell_width=op.col_data.shape[1],
+             ev_rel_err_f64_truth_uncentered=err, fail_above=EV_FAIL,
+             truth_subspace_iters=iters)
+        del T
+    if not worst <= EV_FAIL:
+        raise AssertionError(f"sparse engine EV rel err {worst} > {EV_FAIL}")
+
+    # the products, against float64 CSR products and one float32 library call
+    t = Xl.transpose()
+    Xt32 = sp.csr_matrix((t._csr_data_host(), t._h_indices, t._h_indptr), shape=(p, n))
+    ref = Csr64Operator(torch, Xl64, DEVICE, Xt=Xt32.astype(np.float64))
+    X32 = Xl64.astype(np.float32)
+    lib_mv, lib_rmv = csr_on_card(torch, X32, torch.float32), csr_on_card(torch, Xt32, torch.float32)
+    del X32, Xt32
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(9)
+    stored = Xl.nnz
+    for kk in (1, 8, 64):
+        for name, fn, lib, width, out_len, layout in (
+            ("mv", op.mv, lib_mv, p, n, (op.row_data, op.row_ids)),
+            ("rmv", op.rmv, lib_rmv, n, p, (op.col_data, op.col_ids)),
+        ):
+            B = torch.randn((width, kk), generator=gen, device=DEVICE)
+            want = (ref.mv if name == "mv" else ref.rmv)(B.double())
+            err = float((fn(B).double() - want).abs().max() / want.abs().max())
+            del want
+            ms = _time_ms(torch, lambda: fn(B), 1)  # up to ~2 s a product at k 64
+            lib_ms = _time_ms(torch, lambda: lib @ B, 3)
+            moved = sum(a.numel() * a.element_size() for a in layout) + (width + out_len) * kk * 4
+            bd = bound(moved, 2.0 * stored * kk)
+            emit("sparse_engine_products", product=name, k=kk, ms=ms, **bd,
+                 share_of_bound=bd["bound_ms"] / ms, library_ms=lib_ms,
+                 library_call=f"float32 torch.sparse_csr_tensor {list(lib.shape)} @ dense",
+                 rel_err_f64=err, fail_above=EV_FAIL)
+            if not err <= EV_FAIL:
+                raise AssertionError(f"SparseOperator.{name} k {kk}: rel err {err} > {EV_FAIL}")
+            del B
+    del ref, lib_mv, lib_rmv
+    torch.cuda.empty_cache()
+
+
+def _similarity_f64(torch, name, A, B):
+    """The measures in float64 from their definitions (torch.cdist for
+    the distances), independent of the port's code."""
+
+    eps = torch.finfo(torch.float32).eps
+    if name in ("cosine", "pearson"):
+        if name == "pearson":
+            A, B = A - A.mean(dim=1, keepdim=True), B - B.mean(dim=1, keepdim=True)
+        den = A.norm(dim=1)[:, None] * B.norm(dim=1)[None, :]
+        return torch.where(den > eps, (A @ B.T) / den.clamp(min=eps), torch.zeros_like(den))
+    if name == "euclidean":  # differences, not the |x|^2 + |y|^2 - 2<x, y> expansion
+        return torch.exp(-torch.cdist(A, B, compute_mode="donot_use_mm_for_euclid_dist"))
+    if name == "manhattan":
+        return torch.exp(-torch.cdist(A, B, p=1.0))
+    out = torch.empty((A.shape[0], B.shape[0]), dtype=A.dtype, device=A.device)
+    t = float(torch.finfo(torch.float64).eps)
+    for r0 in range(0, A.shape[0], 64):  # jaccard, with the reference's quirks
+        a = A[r0:r0 + 64, None, :]
+        inter = ((a - B[None]).abs() < t).sum(dim=-1).double()
+        union = ((a > 0) | (B[None] > 0)).sum(dim=-1).double()
+        out[r0:r0 + 64] = torch.where(union > 0, inter / union.clamp(min=1), torch.zeros_like(union))
+    return out
+
+
+def phase_similarity(torch, T) -> None:
+    """BASELINE config #5 over the pipeline's scores: cosine, euclidean
+    and pearson ``pairwise`` on the first 50,000 rows (a [50000, 50000]
+    float32 output), manhattan and jaccard on 5,000, each timed beside its
+    bound and held to float64 on the first 1,024 rows against all: cosine
+    and pearson at 1e-5 absolute, the others at 1e-5 of max |truth|. The
+    euclidean bar leaves out the self-pairs: the expansion
+    ``|x|^2 + |y|^2 - 2<x, y>`` cancels to float32 noise there (a few
+    1e-5 of |x|^2), and its square root lifts that to ~1e-2 (the JAX
+    package computes the same expansion); their error is printed."""
+
+    from single_algebra_tpu_torch import similarity as S
+
+    measures = (("cosine", S.CosineSimilarity(), SIM_ROWS, False),
+                ("euclidean", S.EuclideanSimilarity(), SIM_ROWS, True),
+                ("pearson", S.PearsonSimilarity(), SIM_ROWS, False),
+                ("manhattan", S.ManhattanSimilarity(), SIM_L1_ROWS, True),
+                ("jaccard", S.JaccardSimilarity(), SIM_L1_ROWS, True))
+    failed = []
+    for name, meas, rows, relative in measures:
+        E = T[:rows].contiguous()
+        out = meas.pairwise(E)
+        torch.cuda.synchronize()
+        want = _similarity_f64(torch, name, E[:SIM_CHECK_ROWS].double(), E.double())
+        diff = (out[:SIM_CHECK_ROWS].double() - want).abs()
+        scale = float(want.abs().max()) if relative else 1.0
+        self_err = float(diff.diagonal().max()) / scale
+        if name == "euclidean":
+            diff.fill_diagonal_(0.0)
+        err = float(diff.max()) / scale
+        del diff, want, out
+        torch.cuda.empty_cache()
+        ms = _time_ms(torch, lambda: meas.pairwise(E), 3)
+        d = E.shape[1]
+        flops = 2.0 * rows * rows * d if name in ("cosine", "euclidean", "pearson") else 3.0 * rows * rows * d
+        bd = bound(rows * d * 4 + rows * rows * 4, flops)
+        emit("similarity", measure=name, rows=rows, dim=d, ms=ms, **bd,
+             share_of_bound=bd["bound_ms"] / ms, err_f64=err, self_pair_err=self_err,
+             relative_to_max=relative, fail_above=SIM_FAIL, rows_checked=SIM_CHECK_ROWS)
+        if not err <= SIM_FAIL:
+            failed.append((name, err))
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"similarity off its float64 values: {failed}")
+
+
+def phase_masked_tiled(torch, m, X) -> None:
+    """``MaskedSparsePCABuilder`` with ``lanczos_block(8)`` on the tiled
+    path's matrix and cached engine (``MaskedOperator`` over
+    ``TiledSparseOperator``), the mask the top 2,000 columns of the port's
+    ``var_col``: both tiled kernels' launches counted from 0, the EVs held
+    to the float64 UNCENTERED truth of ``X[:, mask]`` (a 2,000 x 2,000
+    Gram from CSR; fail above 1e-5)."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import MaskedSparsePCABuilder
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator
+    from single_algebra_tpu_torch.ops import cuda_lib
+
+    n, p = m.shape
+    t0 = time.perf_counter()
+    mask = _top_mask(torch, m.var_col(), HVG).cpu().numpy()
+    var_s = time.perf_counter() - t0
+    cuda_lib.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pca = MaskedSparsePCABuilder().mask(mask).n_components(K).lanczos_block(8).build()
+    T = pca.fit_transform(m)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {kn: cuda_lib.launch_counts[kn] for kn in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")}
+    op = m._operator_cache.get("auto")
+    if not isinstance(op, TiledSparseOperator) or min(launches.values()) <= 0:
+        raise AssertionError(f"masked tiled fit: engine {type(op).__name__}, launches {launches}")
+    if tuple(T.shape) != (n, K) or not bool(torch.isfinite(T).all()):
+        raise AssertionError(f"masked tiled scores: shape {tuple(T.shape)}")
+    t0 = time.perf_counter()
+    Xm = X[:, np.where(mask)[0]].astype(np.float64)
+    Gm = torch.from_numpy((Xm.T @ Xm).toarray()).to(DEVICE)
+    ev_true = (torch.linalg.eigvalsh(Gm).flip(0)[:K] / (n - 1)).cpu().numpy()
+    truth_s = time.perf_counter() - t0
+    err = _ev_rel_err(pca.explained_variance_, ev_true)
+    emit("masked_tiled", n=n, p=p, hvg=HVG, engine="MaskedOperator over TiledSparseOperator",
+         var_col_mask_s=var_s, col_ell_build_s=m.transpose().ell_build_seconds,
+         warm_engine_fit_transform_s=seconds, block_steps=pca.lanczos_steps_taken_,
+         launches=launches, ev_rel_err_f64_truth_uncentered=err, fail_above=EV_FAIL,
+         truth_s=truth_s, ev_top3=np.asarray(pca.explained_variance_)[:3].tolist(),
+         ev_true_top3=ev_true[:3].tolist())
+    if not err <= EV_FAIL:
+        raise AssertionError(f"masked tiled EV rel err {err} > {EV_FAIL}")
+    m._transpose_cache = None  # the column layout: not needed past this phase
+
+
 def main() -> int:
     import torch
 
@@ -1261,7 +1871,13 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(torch)
     phase_gram_tiers(torch)
-    launches, kern["library_ms"] = phase_main_path(torch, kern.pop("slab_widths"))
+    launches, kern["library_ms"], X = phase_main_path(torch, kern.pop("slab_widths"))
+    torch.cuda.empty_cache()
+    ctx = phase_pipeline(torch, phase_stats(torch, X))
+    del X
+    phase_sparse_engine(torch, ctx)
+    phase_similarity(torch, ctx.pop("T"))
+    del ctx
     torch.cuda.empty_cache()
     phase_dense_path(torch)
     torch.cuda.empty_cache()

@@ -7,14 +7,18 @@ written by hand for NVIDIA Hopper (``csrc/``), built with ``nvcc`` on
 first use; on CPU tensors each kernel's wrapper runs its plain PyTorch
 version.
 
-Ported so far: ``SparseMatrix.from_scipy`` -> ``make_engine_operator``
--> ``SparsePCA`` on three engines. The densified engine
-(``DensifiedOperator``: dense bf16 hi/lo payload, cuBLAS products;
-``auto``'s first choice when the dense form fits), the Gram engine
-(``GramPCAEngine``: densify kernel, Gram contraction, p-space solve,
-projection) and the tiled engine (``TiledSparseOperator``:
-``tiled_ell_spmm_t`` / ``tiled_ell_rmv_t`` kernels), with the randomized,
-Lanczos (``SparsePCABuilder``'s default) and block-Lanczos solvers.
+Ported so far: the reference crate's surface. ``SparseMatrix`` with its
+device padded-ELL layouts, statistics and value maps (``normalize``,
+``log1p_normalize``, ``map_stored``); ``dense`` (normalize, log1p);
+``SparsePCA`` and ``MaskedSparsePCA`` on four engines through
+``make_engine_operator``: the densified engine (``DensifiedOperator``:
+dense bf16 hi/lo payload, cuBLAS products; ``auto``'s first choice when
+the dense form fits), the Gram engine (``GramPCAEngine``: densify kernel,
+Gram contraction, p-space solve, projection), the tiled engine
+(``TiledSparseOperator``: ``tiled_ell_spmm_t`` / ``tiled_ell_rmv_t``
+kernels) and the gather engine (``SparseOperator``), with the randomized,
+Lanczos (the builders' default) and block-Lanczos solvers; and the
+``similarity`` measures.
 """
 
 from .types import (  # noqa: F401
@@ -26,7 +30,14 @@ from .types import (  # noqa: F401
 
 set_precision_policy()
 
-from .sparse import SparseMatrix  # noqa: E402,F401
-from .models import SparsePCA, SparsePCABuilder, make_engine_operator  # noqa: E402,F401
+from .sparse import SparseMatrix, csc_matrix, csr_matrix, random_sparse  # noqa: E402,F401
+from .models import (  # noqa: E402,F401
+    MaskedSparsePCA,
+    MaskedSparsePCABuilder,
+    SparsePCA,
+    SparsePCABuilder,
+    make_engine_operator,
+)
+from . import dense, similarity  # noqa: E402,F401
 
 __version__ = "0.1.0"

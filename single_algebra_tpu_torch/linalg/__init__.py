@@ -4,6 +4,8 @@ from .operators import (  # noqa: F401
     CenteredOperator,
     DenseOperator,
     DensifiedOperator,
+    MaskedOperator,
+    SparseOperator,
     TiledSparseOperator,
     bf16_terms,
 )

@@ -6,6 +6,11 @@ any object with ``shape``, ``dtype``, ``device``, ``mv(B)`` (``A @ B``) and
 ``mv_fast``/``rmv_fast`` (what randomized power iterations ride) and
 ``mv_precise``/``rmv_precise`` (the final projection and the PCA scores).
 
+* :class:`SparseOperator`   — the gather engine (``'sparse'``): products
+  through ``ops/spmm.py::ell_spmm`` over the matrix's two ELL layouts.
+* :class:`MaskedOperator`   — a column-masked view of any engine: the
+  narrow operand is scattered to full width for ``mv``, the masked rows of
+  the full product gathered for ``rmv``.
 * :class:`DenseOperator`    — a dense tensor (the small-Gram solve).
 * :class:`CenteredOperator` — implicit column centering as a rank-1
   correction, with the operand deflation of its ``rmv`` products; it
@@ -48,6 +53,8 @@ from ..ops.spmm import ell_spmm
 from ..ops.spmm_kernel import tiled_ell_rmv_t, tiled_ell_spmm_t
 
 __all__ = [
+    "SparseOperator",
+    "MaskedOperator",
     "OPERAND_TERMS",
     "bf16_terms",
     "DenseOperator",
@@ -65,6 +72,100 @@ def hbm_bytes(device: torch.device | str) -> int | None:
     if device.type != "cuda":
         return None
     return int(torch.cuda.mem_get_info(device)[1])
+
+
+@dataclasses.dataclass
+class SparseOperator:
+    """Products with a ``SparseMatrix`` through both ELL orientations: ``mv``
+    over the row layout, ``rmv`` over the column layout, each a row-blocked
+    gather (``ell_spmm``) in the promoted dtype of the values and the
+    operand. Built from the matrix's cached device layouts (the column one
+    comes with its transpose)."""
+
+    row_data: torch.Tensor  # row-major ELL [R, Wr]
+    row_ids: torch.Tensor
+    col_data: torch.Tensor  # column-major ELL [C, Wc]
+    col_ids: torch.Tensor
+    shape: Tuple[int, int]
+
+    @classmethod
+    def from_matrix(cls, m) -> "SparseOperator":
+        row = m._layout_for("row")
+        col = m._layout_for("col")
+        return cls(row.ell_data, row.ell_ids, col.ell_data, col.ell_ids, m.shape)
+
+    @property
+    def dtype(self):
+        return self.row_data.dtype
+
+    @property
+    def device(self):
+        return self.row_data.device
+
+    def mv(self, B):
+        """A @ B, B: [ncols, k] -> [nrows, k]."""
+
+        return ell_spmm(self.row_data, self.row_ids, B)[: self.shape[0]]
+
+    def rmv(self, C):
+        """A.T @ C, C: [nrows, k] -> [ncols, k]."""
+
+        return ell_spmm(self.col_data, self.col_ids, C)[: self.shape[1]]
+
+
+@dataclasses.dataclass
+class MaskedOperator:
+    """Column-masked view of any engine: logical shape ``(n, p_masked)``.
+
+    ``mask_idx[i]`` is the full-width column of masked column i. ``mv*``
+    scatter the narrow operand into full width (columns outside the mask
+    multiply zeros); ``rmv*`` gather the masked rows of the full-width
+    product. Each accuracy class takes the base's product of that class,
+    or its plain ``mv``/``rmv`` where the base has none."""
+
+    base: object
+    mask_idx: torch.Tensor  # [p_masked] int64
+
+    @property
+    def shape(self):
+        return (self.base.shape[0], self.mask_idx.shape[0])
+
+    @property
+    def dtype(self):
+        return self.base.dtype
+
+    @property
+    def device(self):
+        return self.base.device
+
+    def _full(self, B):
+        full = torch.zeros((self.base.shape[1], B.shape[1]), dtype=B.dtype, device=B.device)
+        full[self.mask_idx] = B
+        return full
+
+    def _mv_with(self, name, B):
+        return getattr(self.base, name, self.base.mv)(self._full(B))
+
+    def _rmv_with(self, name, C):
+        return getattr(self.base, name, self.base.rmv)(C)[self.mask_idx]
+
+    def mv(self, B):
+        return self.base.mv(self._full(B))
+
+    def rmv(self, C):
+        return self.base.rmv(C)[self.mask_idx]
+
+    def mv_precise(self, B):
+        return self._mv_with("mv_precise", B)
+
+    def rmv_precise(self, C):
+        return self._rmv_with("rmv_precise", C)
+
+    def mv_fast(self, B):
+        return self._mv_with("mv_fast", B)
+
+    def rmv_fast(self, C):
+        return self._rmv_with("rmv_fast", C)
 
 
 @dataclasses.dataclass

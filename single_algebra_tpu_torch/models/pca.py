@@ -1,4 +1,4 @@
-"""SparsePCA — PCA for sparse matrices, on the Gram and tiled engines.
+"""SparsePCA — PCA for sparse matrices, on every engine of the JAX package.
 
 Counterpart of ``single_algebra_tpu/models/pca.py`` with the same
 builder defaults (n_components=50, alpha=1.0, tolerance=1e-6, seed=42,
@@ -13,13 +13,11 @@ center=True, method=Lanczos) and the same semantics:
 * ``save``/``load`` use the JAX package's ``.npz`` format, so a model
   saved by either package loads in the other.
 
-The densified engine (``DensifiedOperator``), the Gram engine
-(``linalg/gram.py``) and the tiled engine (``TiledSparseOperator``) are
-ported, with the randomized, Lanczos and block-Lanczos solvers on the
-non-Gram engines. ``make_engine_operator`` keeps the JAX decision order
-and raises ``NotImplementedError`` where that order lands on the one
-engine the port does not have (the gather engine, ``'sparse'``); it never
-substitutes one.
+The engines: the densified engine (``DensifiedOperator``), the Gram
+engine (``linalg/gram.py``), the tiled engine (``TiledSparseOperator``)
+and the gather engine (``SparseOperator``), with the randomized, Lanczos
+and block-Lanczos solvers on the non-Gram engines. ``make_engine_operator``
+keeps the JAX decision order.
 """
 
 from __future__ import annotations
@@ -36,18 +34,17 @@ import torch
 from ..linalg.block_lanczos import block_lanczos_svd
 from ..linalg.gram import EIGH_MAX_PP, GramPCAEngine, gram_pca_graph
 from ..linalg.lanczos import lanczos_svd
-from ..linalg.operators import CenteredOperator, DensifiedOperator, TiledSparseOperator
+from ..linalg.operators import (
+    CenteredOperator,
+    DensifiedOperator,
+    SparseOperator,
+    TiledSparseOperator,
+)
 from ..linalg.svd import randomized_svd, svd_flip
 from ..sparse.matrix import SparseMatrix
 from ..types import SVDMethod
 
 __all__ = ["SparsePCA", "SparsePCABuilder", "make_engine_operator"]
-
-# engines of the JAX package that the port does not have yet, with the
-# ROADMAP items that port each
-_NOT_PORTED = {
-    "sparse": "ROADMAP Queue 1 item 2 (SparseOperator)",
-}
 
 
 def _as_matrix(x, device="cuda") -> SparseMatrix:
@@ -89,9 +86,8 @@ def make_engine_operator(m: SparseMatrix, engine: str = "auto"):
     'auto' on a CUDA device takes the JAX package's order: the densified
     engine when the dense bf16 form fits 0.6 of device memory, else the
     Gram engine when its plan fits 0.8, else the tiled engine when its
-    payload fits 0.6, else the gather engine. On any other device 'auto'
-    is 'sparse', as off the TPU in the JAX package. The gather engine
-    ('sparse') is not ported yet and raises ``NotImplementedError``.
+    payload fits 0.6, else the gather engine ('sparse'). On any other
+    device 'auto' is 'sparse', as off the TPU in the JAX package.
     """
 
     cache = m._operator_cache
@@ -123,12 +119,8 @@ def make_engine_operator(m: SparseMatrix, engine: str = "auto"):
         op = GramPCAEngine.from_matrix(m)
     elif engine == "tiled":
         op = TiledSparseOperator.from_matrix(m)
-    elif engine in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {engine!r} (from engine={requested!r} on "
-            f"{m.device.type}) is not ported to torch yet: "
-            f"{_NOT_PORTED[engine]}. Pass engine='dense', 'gram' or 'tiled'."
-        )
+    elif engine == "sparse":
+        op = SparseOperator.from_matrix(m)
     else:
         raise ValueError(f"unknown engine {engine!r}")
     cache[engine] = op
@@ -554,8 +546,7 @@ class SparsePCABuilder:
         return self
 
     def engine(self, e: str) -> "SparsePCABuilder":
-        """Compute engine: 'auto', 'dense', 'gram' or 'tiled' (the engines
-        ported)."""
+        """Compute engine: 'auto', 'dense', 'gram', 'tiled' or 'sparse'."""
 
         self._engine = e
         return self

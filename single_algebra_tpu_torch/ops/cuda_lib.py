@@ -29,6 +29,7 @@ from ..native.build import build_dir, source_tag
 __all__ = [
     "SOURCES",
     "launch_counts",
+    "densify_launches_by_dtype",
     "reset_launch_counts",
     "nvcc",
     "build",
@@ -49,6 +50,11 @@ SOURCES = {
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
 launch_counts = {"tiled_ell_densify_t": 0, "tiled_ell_spmm_t": 0, "tiled_ell_rmv_t": 0}
 
+#: The densify kernel's launches in :data:`launch_counts`, split by the
+#: output dtype's name ("int8", "bfloat16", "float32"): the Gram tier a
+#: pass ran.
+densify_launches_by_dtype: dict = {}
+
 #: library name -> compiler report (``-Xptxas -v``) of its last verbose build
 build_logs: dict = {}
 
@@ -59,6 +65,7 @@ _libs: dict = {}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    densify_launches_by_dtype.clear()
 
 
 def nvcc() -> str:

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from . import cuda_lib
-from .cuda_lib import launch_counts, reset_launch_counts  # noqa: F401
+from .cuda_lib import densify_launches_by_dtype, launch_counts, reset_launch_counts  # noqa: F401
 
 __all__ = [
     "tiled_ell_densify_t",
@@ -154,6 +154,8 @@ def tiled_ell_densify_t(
                   out_dtype, row_offset, rows)
     if out.numel():
         launch_counts["tiled_ell_densify_t"] += 1
+        name = str(out_dtype).split(".")[-1]
+        densify_launches_by_dtype[name] = densify_launches_by_dtype.get(name, 0) + 1
     return out
 
 

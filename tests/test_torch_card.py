@@ -110,3 +110,40 @@ def test_cuda_dense_routes_identical(cuda):
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-6
     exact = torch.from_numpy(X.toarray()).to(cuda).double() @ B.double()
     assert float((got - exact).abs().max() / exact.abs().max()) <= 2e-5
+
+
+@pytest.mark.requires_cuda
+def test_cuda_pipeline_runs_on_the_card(cuda, monkeypatch):
+    """The reference crate's pipeline on a default-device matrix: the
+    statistics and maps stay on the card, the masked fit of the
+    log-normalized values takes the Gram engine's float32 tier (float32
+    densify slabs), and every engine gives the CPU gather engine's model."""
+
+    from single_algebra_tpu_torch import Direction, MaskedSparsePCABuilder
+
+    X = clustered_counts(3000, 400, seed=6)
+    m = SparseMatrix.from_scipy(X)
+    m.transpose()  # both layouts: the maps apply to both
+    Xl = m.normalize(m.sum_row(), 1e4, Direction.ROW).log1p_normalize()
+    var = Xl.var_col()
+    assert var.device.type == "cuda" and Xl.ell_data.device.type == "cuda"
+    mask = np.zeros(400, bool)
+    mask[var.topk(120).indices.cpu().numpy()] = True
+    host = sp.csr_matrix((Xl._csr_data_host(), X.indices, X.indptr), shape=X.shape)
+    ref = MaskedSparsePCABuilder().mask(mask).n_components(4).engine("sparse").build()
+    ref.fit(SparseMatrix.from_scipy(host, device="cpu"))
+    evr = np.asarray(ref.explained_variance_, np.float64)
+    monkeypatch.setattr(tpca.DensifiedOperator, "hbm_budget_bytes",
+                        staticmethod(lambda device: 0))
+    cuda_lib.reset_launch_counts()
+    pca = MaskedSparsePCABuilder().mask(mask).n_components(4).build()
+    T = pca.fit_transform(Xl)
+    eng = Xl._operator_cache["auto"]
+    assert isinstance(eng, GramPCAEngine) and not eng.meta[3] and not eng.meta[4]
+    assert set(cuda_lib.densify_launches_by_dtype) == {"float32"}
+    assert T.device.type == "cuda" and tuple(T.shape) == (3000, 4)
+    assert np.abs(np.asarray(pca.explained_variance_) - evr).max() <= 1e-4 * evr[0]
+    for engine in ("sparse", "tiled", "dense"):
+        other = MaskedSparsePCABuilder().mask(mask).n_components(4).engine(engine).build()
+        other.fit(Xl)
+        assert np.abs(np.asarray(other.explained_variance_) - evr).max() <= 1e-4 * evr[0]

@@ -126,7 +126,7 @@ def test_save_load_across_packages(fitted, counts, tmp_path):
     np.testing.assert_array_equal(loaded.explained_variance_, np.asarray(jp.explained_variance_))
     np.testing.assert_array_equal(loaded.mean_, np.asarray(jp.mean_))
     assert loaded.total_variance_ == jp.total_variance_
-    loaded.engine = "gram"  # 'auto' on a CPU device is the unported 'sparse'
+    loaded.engine = "gram"  # the JAX model was fitted on the Gram engine; project on it too
     T2 = loaded.transform(counts).numpy()
     assert np.abs(T2 - np.asarray(jp.transform(JMatrix.from_scipy(counts)))).max() <= 1e-4 * np.abs(T2).max()
 
@@ -152,10 +152,11 @@ def test_from_state(fitted, counts):
 
 def test_engine_selection(counts):
     m = SparseMatrix.from_scipy(counts, device="cpu")
-    # on a CPU device 'auto' is 'sparse', as off the TPU in the JAX package
-    for engine in ("auto", "sparse"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpca.make_engine_operator(m, engine)
+    # on a CPU device 'auto' is 'sparse' (the gather engine), as off the TPU
+    # in the JAX package
+    sparse = tpca.make_engine_operator(m, "auto")
+    assert isinstance(sparse, tpca.SparseOperator)
+    assert tpca.make_engine_operator(m, "sparse") is sparse
     dense = tpca.make_engine_operator(m, "dense")
     assert isinstance(dense, tpca.DensifiedOperator) and dense.lo is None
     assert tpca.make_engine_operator(m, "dense") is dense
@@ -167,33 +168,45 @@ def test_engine_selection(counts):
     tiled = tpca.make_engine_operator(m, "tiled")
     assert isinstance(tiled, tpca.TiledSparseOperator)
     assert tpca.make_engine_operator(m, "tiled") is tiled
-    with pytest.raises(NotImplementedError):
-        SparsePCABuilder().n_components(3).build().fit(m)
 
 
-def _roadmap_items():
-    """{(queue, item): text} of ROADMAP.md's numbered queue items."""
+@pytest.mark.parametrize("engine", ["auto", "sparse"])
+def test_cpu_default_engine_fits_and_matches_jax(counts, engine):
+    """``SparsePCA().fit`` of a CPU matrix, 'auto' and 'sparse': the gather
+    engine with the builder's default (Lanczos), against the JAX package's
+    model (its own start vector: EVs to 1e-4 of the largest)."""
 
-    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
-        text = f.read()
-    items = {}
-    for queue, body in re.findall(r"^### Queue (\d+)\b.*?\n(.*?)(?=^##|\Z)",
-                                  text, re.S | re.M):
-        for num, item in re.findall(r"^(\d+)\. (.*?)(?=^\d+\. |\Z)", body, re.S | re.M):
-            items[(int(queue), int(num))] = item
-    return items
+    tp = SparsePCA(n_components=4, engine=engine)
+    tp.fit(SparseMatrix.from_scipy(counts, device="cpu"))
+    jp = jmodels.SparsePCA(n_components=4, engine=engine)
+    jp.fit(JMatrix.from_scipy(counts))
+    evj = np.asarray(jp.explained_variance_, np.float64)
+    assert np.abs(tp.explained_variance_ - evj).max() <= 1e-4 * evj[0]
+    assert tp.lanczos_steps_taken_ > 0
 
 
-@pytest.mark.parametrize("engine", sorted(tpca._NOT_PORTED))
-def test_not_ported_names_its_roadmap_items(engine):
-    """Each unported engine's error names ROADMAP items that exist and
-    are about what they port."""
+def _jax_engine_names():
+    """The engine names the JAX package's ``make_engine_operator`` takes."""
 
-    refs = re.findall(r"Queue (\d+) item (\d+) \((\w+)\)", tpca._NOT_PORTED[engine])
-    assert refs
-    items = _roadmap_items()
-    for queue, num, name in refs:
-        assert re.search(rf"\b{name}\b", items[(int(queue), int(num))]), (queue, num, name)
+    import inspect
+
+    from single_algebra_tpu.models import pca as jpca
+
+    src = inspect.getsource(jpca.make_engine_operator)
+    return sorted(set(re.findall(r'engine == "(\w+)"', src)))
+
+
+@pytest.mark.parametrize("engine", _jax_engine_names())
+def test_port_accepts_every_jax_engine_name(counts, engine):
+    """Every engine name of the JAX package builds an engine in the port
+    (none is left unported)."""
+
+    m = SparseMatrix.from_scipy(counts, device="cpu")
+    op = tpca.make_engine_operator(m, engine)
+    assert op is tpca.make_engine_operator(m, engine)
+    B = torch.ones((counts.shape[1], 1))
+    want = counts.toarray().astype(np.float64) @ np.ones((counts.shape[1], 1))
+    assert np.abs(getattr(op, "mv_precise", op.mv)(B).numpy() - want).max() <= 1e-5 * want.max()
 
 
 @pytest.mark.parametrize(
@@ -215,16 +228,11 @@ def test_auto_decision_order_on_cuda(monkeypatch, counts, dense_budget, gram_bud
                         classmethod(lambda cls, mm: 5000))
     built = []
     for cls, name in ((tpca.DensifiedOperator, "dense"), (tgram.GramPCAEngine, "gram"),
-                      (tpca.TiledSparseOperator, "tiled")):
+                      (tpca.TiledSparseOperator, "tiled"), (tpca.SparseOperator, "sparse")):
         monkeypatch.setattr(cls, "from_matrix", classmethod(
             lambda cls, mm, name=name: built.append((name, mm)) or f"{name}-engine"))
-    if want != "sparse":
-        assert tpca.make_engine_operator(m, "auto") == f"{want}-engine"
-        assert built == [(want, m)]
-    else:
-        with pytest.raises(NotImplementedError, match=f"'{want}'"):
-            tpca.make_engine_operator(m, "auto")
-        assert built == []
+    assert tpca.make_engine_operator(m, "auto") == f"{want}-engine"
+    assert built == [(want, m)]
 
 
 class _ProjectionProbe:
@@ -284,11 +292,9 @@ def assert_lanczos_models_match(tp, T, jp, Tj, counts, k):
     assert tp.total_variance_ == pytest.approx(jp.total_variance_, rel=1e-6)
 
 
-def test_lanczos_on_tiled_names_its_roadmap_item(counts):
+def test_lanczos_and_block_lanczos_on_tiled_match_jax(counts):
     """The Lanczos method on the tiled engine, scalar and block: it runs
-    and gives the JAX package's model. (The name dates from when this call
-    raised ``NotImplementedError`` naming its roadmap item; the case is
-    kept under it.)"""
+    and gives the JAX package's model."""
 
     for block in (None, 4):
         tp, T, jp, Tj = fit_lanczos_both(counts, "tiled", k=3, block=block)
