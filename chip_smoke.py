@@ -4,7 +4,7 @@
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py    # ~12 minutes: north star, the preprocessing and masked-PCA
-                             # pipeline, densified path, tiled path
+                             # pipeline, streaming PCA, densified path, tiled path, t-SNE
 
 Phases, one JSON line each:
 
@@ -134,9 +134,33 @@ star's counts (after ``main_path``) and the tiled path's matrix:
    ``MaskedOperator``, both kernels' launches counted from 0, EVs against
    the float64 uncentered truth of ``X[:, mask]`` (fail above 1e-5).
 
+The JAX package's models beyond PCA:
+
+18. ``streaming`` (after ``pipeline``, on the north star's counts):
+   ``StreamingSparsePCA(n_components=50, n_features=30000)``,
+   ``partial_fit`` over 131,072-row chunks, ``finalize``, ``transform``
+   over the same chunks, densify launches counted from 0 (bf16 output in
+   the fit, float32 in the transform: 2 x slabs), slab widths against
+   those the ``kernel`` phase held, EV against ``main_path``'s float64
+   truth (fail above 1e-5), the first chunk's scores against a float64
+   ``(X - mu) V^T`` on the card (fail above 1e-5 of max |score|); the host
+   build against the upload of the first chunk's slabs, and the device
+   idle share of one ``partial_fit``. ``streaming_f32``: 16 slabs (a
+   seeded sample of 131,072 rows) of the pipeline's log-normalized values
+   (float32 densify and GEMM) against the float64 Gram of those rows (fail
+   above 1e-5).
+19. ``tsne``: ``tsne.run`` on ``benchmarks/tsne_large.py``'s blobs (10
+   clusters, d 50, seed 0), perplexity 30, 500 epochs, knn mode at n =
+   50,000 and exact mode at n = 10,000: the gradient at a seeded y against
+   a float64 evaluation on the card (fail above 1e-4 of max |g|), two
+   evaluations bit for bit equal, finite output, the silhouette of 5,000
+   sampled points against the planted labels (fail below 0.7).
+
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
-float32 multiply-adds (2 x stored slots x kp) over 67 TFLOP/s.
+float32 multiply-adds (2 x stored slots x kp) over 67 TFLOP/s. The
+densify kernel's ``launches`` are those of the north star's cold fit plus
+the streaming phase's (both streams).
 
 Then, as the last three lines: ``{"kernels": [...]}``, the card's
 ``name, power.limit`` from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -165,6 +189,11 @@ TILED_EV_FAIL = 1e-4  # the tiled phase fails above this EV error vs its f64 twi
 DENSE_CELLS, DENSE_GENES = 400_000, 30_000  # the densified path: dense bf16 24 GB
 DENSE_LO_CELLS = 200_000  # its non-bf16-exact variant: hi + lo, 12 GB each
 RANDOMIZED_TRUTH_FAIL = 5e-3  # the q = 7 A-space sketch against the centered f64 truth
+STREAM_CHUNK = 131_072  # rows per partial_fit / transform call: 16 slabs of 8,192
+SCORE_REL_FAIL = 1e-5  # streaming scores vs a float64 recompute, of max |score|
+TSNE_KNN_N, TSNE_EXACT_N, TSNE_EPOCHS = 50_000, 10_000, 500  # results_tsne_tpu.json's knn row
+TSNE_GRAD_FAIL = 1e-4  # the float32 gradient vs a float64 evaluation, of max |g|
+SIL_SAMPLE, SIL_FAIL = 5_000, 0.7  # silhouette sample and bar (the TPU run recorded 0.779)
 KERNEL_REL_FAIL = 1e-5  # spmm / rmv kernel vs plain, relative to max |plain|
 HVG = 2_000  # the pipeline's mask: the top columns of var_col (stands in for HVG selection)
 NORM_TARGET = 1e4  # normalize's target row sum
@@ -283,9 +312,10 @@ def phase_kernel(torch) -> dict:
     slots at a time), duplicate ids, ids outside the tile, a slab at a
     non-zero offset that is not a whole number of blocks, col_tile 256 and
     128. Then the north-star slab shapes (int8, bf16, f32; 30,720 x 8,192,
-    wt 8, 16 and 32: every bucket width of that engine) compared the same
-    way and timed, each with its bound. -> the headline numbers and
-    ``slab_widths``, the widths held at the slab shape."""
+    wt 8, 16 and 32: every bucket width of that engine; 24 and 40: the
+    streaming payload's widths, its slab's densest group rounded to 8)
+    compared the same way and timed, each with its bound. -> the headline
+    numbers and ``slab_widths``, the widths held at the slab shape."""
 
     from single_algebra_tpu_torch.ops.densify import (
         tiled_ell_densify_t, tiled_ell_densify_t_plain, tiled_ell_densify_t_warp,
@@ -333,7 +363,8 @@ def phase_kernel(torch) -> dict:
 
     ntiles, ct, slab = 120, 256, 8192
     headline = None
-    slab_cases = (("slab_wt8", 8), ("slab_wt16", 16), ("slab_wt32", 32), ("slab_dup_ids", 8))
+    slab_cases = (("slab_wt8", 8), ("slab_wt16", 16), ("slab_wt24", 24), ("slab_wt32", 32),
+                  ("slab_wt40", 40), ("slab_dup_ids", 8))
     for case, wt in slab_cases:
         # a bucket payload two slabs wide; the kernel reads the second slab
         # through its offset, as the Gram engine does
@@ -391,26 +422,31 @@ def phase_gram_tiers(torch) -> None:
             raise AssertionError(f"{tier} Gram rel err {rel} > {limit}")
 
 
+def csr_dense_rows(torch, X, r0: int, r1: int, dtype, device="cuda"):
+    """Rows ``[r0, r1)`` of the host CSR ``X`` as a dense tensor on
+    ``device``, independent of the port."""
+
+    import numpy as np
+
+    lo, hi = int(X.indptr[r0]), int(X.indptr[r1])
+    counts = torch.from_numpy(np.diff(X.indptr[r0:r1 + 1]).astype(np.int64)).to(device)
+    rows = torch.repeat_interleave(torch.arange(r1 - r0, device=device), counts)
+    cols = torch.from_numpy(X.indices[lo:hi].astype(np.int64)).to(device)
+    D = torch.zeros((r1 - r0, X.shape[1]), dtype=dtype, device=device)
+    D.index_put_((rows, cols), torch.from_numpy(X.data[lo:hi]).to(device, dtype),
+                 accumulate=True)
+    return D
+
+
 def f64_gram(torch, X, chunk: int = 4096, device="cuda"):
     """(G, mu): the dense float64 Gram ``X^T X`` of CSR row chunks and the
     column means, on the card and independent of the port."""
 
-    import numpy as np
-
-    dev = torch.device(device)
     n, p = X.shape
-    G = torch.zeros((p, p), dtype=torch.float64, device=dev)
-    colsum = torch.zeros(p, dtype=torch.float64, device=dev)
-    dense = torch.empty((chunk, p), dtype=torch.float64, device=dev)
+    G = torch.zeros((p, p), dtype=torch.float64, device=device)
+    colsum = torch.zeros(p, dtype=torch.float64, device=device)
     for r0 in range(0, n, chunk):
-        r1 = min(r0 + chunk, n)
-        lo, hi = int(X.indptr[r0]), int(X.indptr[r1])
-        counts = torch.from_numpy(np.diff(X.indptr[r0:r1 + 1]).astype(np.int64)).to(dev)
-        rows = torch.repeat_interleave(torch.arange(r1 - r0, device=dev), counts)
-        cols = torch.from_numpy(X.indices[lo:hi].astype(np.int64)).to(dev)
-        vals = torch.from_numpy(X.data[lo:hi].astype(np.float64)).to(dev)
-        D = dense[: r1 - r0].zero_()
-        D.index_put_((rows, cols), vals, accumulate=True)
+        D = csr_dense_rows(torch, X, r0, min(r0 + chunk, n), torch.float64, device)
         G.addmm_(D.T, D)
         colsum += D.sum(dim=0)
     return G, colsum / n
@@ -658,7 +694,7 @@ def phase_main_path(torch, held_widths) -> tuple:
     )
     if not ev_rel_err <= EV_FAIL:
         raise AssertionError(f"EV rel err {ev_rel_err} > {EV_FAIL}")
-    return launches, library_densify_ms(torch, X), X
+    return launches, library_densify_ms(torch, X), X, ev_true
 
 
 def _ev_rel_err(ev, ev_true) -> float:
@@ -1659,6 +1695,259 @@ def phase_log1p_ulp(torch, Xn) -> None:
         raise AssertionError(f"torch.log1p on the card: {worst} ULP > {LOG1P_ULP_FAIL}")
 
 
+def phase_streaming(torch, X, ev_true, held_widths, Xl64) -> int:
+    """Cell 10: single-card ``StreamingSparsePCA(n_components=50,
+    n_features=30000)`` over the north star's counts in 131,072-row chunks
+    (``partial_fit`` each, ``finalize``, ``transform`` each), bf16-exact:
+    every slab densifies to bf16 in the fit and to float32 in the
+    transform. Bars: EV against the north star's float64 truth (1e-5),
+    the first chunk's scores against a float64 ``(X - mu) V^T`` on the card
+    (1e-5 of max |score|), densify launches = 2 x slabs at those output
+    types, no slab width the ``kernel`` phase did not hold. Then 131,072
+    rows (16 slabs, a seeded sample) of the pipeline's log-normalized
+    values (the float32 tier: float32 densify, float32 GEMM) against the
+    float64 Gram of those rows (1e-5).
+    -> the densify launches of both streams."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.models import StreamingSparsePCA
+    from single_algebra_tpu_torch.models import streaming_pca as smod
+    from single_algebra_tpu_torch.ops import cuda_lib
+
+    n, p = X.shape
+    chunks = [X[r0:r0 + STREAM_CHUNK] for r0 in range(0, n, STREAM_CHUNK)]
+    slabs = sum(-(-c.shape[0] // smod._SLAB) for c in chunks)
+    widths: dict = {}
+    payload = smod._slab_payload
+
+    def recording(*args, **kwargs):  # the slab widths, for the held-width bar
+        out = payload(*args, **kwargs)
+        widths[out[2]] = widths.get(out[2], 0) + 1
+        return out
+
+    smod._slab_payload = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        pca = StreamingSparsePCA(n_components=K, n_features=p, device=DEVICE)
+        for c in chunks:
+            pca.partial_fit(c)
+        pca.finalize()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(cuda_lib.densify_launches_by_dtype)
+        t0 = time.perf_counter()
+        scores = [pca.transform(c) for c in chunks]
+        torch.cuda.synchronize()
+        transform_s = time.perf_counter() - t0
+        launches = cuda_lib.launch_counts["tiled_ell_densify_t"]
+        by_dtype = dict(cuda_lib.densify_launches_by_dtype)
+        peak = torch.cuda.max_memory_allocated()
+        by_wt = dict(sorted(widths.items()))
+
+        # the host build against the upload, on the first chunk's slabs
+        t0 = time.perf_counter()
+        built = list(pca._built(chunks[0]))
+        build_s = time.perf_counter() - t0
+        wire = sum(td.nbytes + tl.nbytes for td, tl, *_ in built)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for td, tl, *_ in built:
+            torch.from_numpy(td.view(np.int16) if td.dtype == np.uint16 else td).to(DEVICE)
+            torch.from_numpy(tl).to(DEVICE)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        del built
+        spare = StreamingSparsePCA(n_components=K, n_features=p, device=DEVICE)
+        idle = device_idle(torch, lambda: spare.partial_fit(chunks[0]))
+        del spare
+
+        # the float32 tier: 16 slabs of the log-normalized values, rows drawn
+        # from the whole matrix (its first 131,072 rows hold 9 of the 64
+        # clusters: EVs 10-50 would be a flat noise tail, which no
+        # randomized solve resolves to 1e-5)
+        pick = np.sort(np.random.default_rng(0).choice(n, STREAM_CHUNK, replace=False))
+        rows = Xl64[pick].astype(np.float32)
+        widths.clear()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        pca32 = StreamingSparsePCA(n_components=K, n_features=p, device=DEVICE)
+        pca32.partial_fit(rows).finalize()
+        torch.cuda.synchronize()
+        f32_fit_s = time.perf_counter() - t0
+        f32_launches = cuda_lib.launch_counts["tiled_ell_densify_t"]
+        f32_by_dtype = dict(cuda_lib.densify_launches_by_dtype)
+        f32_by_wt = dict(sorted(widths.items()))
+    finally:
+        smod._slab_payload = payload
+
+    ev_err = _ev_rel_err(pca.explained_variance_, ev_true)
+    # the first chunk's scores against float64 on the card
+    V = pca.components_.double()
+    mu = pca.mean_.double()
+    ref = torch.cat([
+        (csr_dense_rows(torch, chunks[0], r0, min(r0 + 4096, STREAM_CHUNK), torch.float64,
+                        DEVICE) - mu)
+        @ V.T for r0 in range(0, STREAM_CHUNK, 4096)
+    ])
+    T0 = torch.from_numpy(scores[0]).to(DEVICE).double()
+    score_err = float((T0 - ref).abs().max() / ref.abs().max())
+    del ref, T0
+    t0 = time.perf_counter()
+    ev32_true, _ = f64_truth_ev(torch, rows, K, device=DEVICE)
+    f32_truth_s = time.perf_counter() - t0
+    ev32_err = _ev_rel_err(pca32.explained_variance_, ev32_true)
+    ev32_worst = int(np.argmax(np.abs(np.asarray(pca32.explained_variance_, np.float64)
+                                      - ev32_true)))
+
+    emit("streaming", n=n, p=p, chunk_rows=STREAM_CHUNK, chunks=len(chunks), slabs=slabs,
+         fit_s=fit_s, transform_s=transform_s, peak_alloc_gb=peak / 1e9,
+         densify_launches=launches, densify_launches_fit=fit_launches,
+         densify_launches_by_dtype=by_dtype, densify_launches_by_wt=by_wt,
+         first_chunk_host_build_s=build_s, first_chunk_upload_s=upload_s,
+         first_chunk_wire_mb=wire / 1e6, wire_mb_per_s=wire / upload_s / 1e6,
+         partial_fit_idle=idle, ev_rel_err=ev_err, ev_target=EV_TARGET, ev_fail_above=EV_FAIL,
+         score_rel_err_f64=score_err, score_fail_above=SCORE_REL_FAIL,
+         scores_shape=[sum(len(t) for t in scores), K], held_widths=held_widths)
+    emit("streaming_f32", rows=rows.shape[0], slabs=-(-rows.shape[0] // smod._SLAB),
+         fit_s=f32_fit_s, densify_launches_by_dtype=f32_by_dtype, densify_launches_by_wt=f32_by_wt,
+         ev_rel_err=ev32_err, ev_fail_above=EV_FAIL, worst_ev_index=ev32_worst,
+         f64_truth_s=f32_truth_s, rows_from="a seeded sample of the whole matrix",
+         truth="float64 Gram of the same rows, centered, subspace iteration")
+    want = {"bfloat16": slabs, "float32": slabs}
+    if fit_launches != {"bfloat16": slabs} or by_dtype != want or launches != 2 * slabs:
+        raise AssertionError(f"streaming densify launches {by_dtype} (fit {fit_launches}): "
+                             f"want {want}")
+    f32_slabs = -(-rows.shape[0] // smod._SLAB)
+    if f32_by_dtype != {"float32": f32_slabs}:
+        raise AssertionError(f"float32-tier densify launches {f32_by_dtype}, want {f32_slabs}")
+    unheld = (set(by_wt) | set(f32_by_wt)) - set(held_widths)
+    if unheld:
+        raise AssertionError(f"streaming slab widths {sorted(unheld)}: the kernel phase held "
+                             f"{held_widths} only")
+    if sum(len(t) for t in scores) != n or not all(np.isfinite(t).all() for t in scores):
+        raise AssertionError("streaming scores misshapen or not finite")
+    if not ev_err <= EV_FAIL:
+        raise AssertionError(f"streaming EV rel err {ev_err} > {EV_FAIL}")
+    if not score_err <= SCORE_REL_FAIL:
+        raise AssertionError(f"streaming scores rel err {score_err} > {SCORE_REL_FAIL}")
+    if not ev32_err <= EV_FAIL:
+        raise AssertionError(f"float32-tier streaming EV rel err {ev32_err} > {EV_FAIL}")
+    return launches + f32_launches
+
+
+def make_blobs(n, d=50, nc=10, seed=0):
+    """``benchmarks/tsne_large.py::make_blobs`` (that file imports JAX)."""
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((nc, d)) * 10.0
+    labels = rng.integers(0, nc, n)
+    x = (centers[labels] + rng.standard_normal((n, d))).astype(np.float32)
+    return x, labels
+
+
+def silhouette_on_card(torch, y, labels, sample: int, seed: int = 0) -> float:
+    """Mean silhouette of ``sample`` points drawn without replacement
+    (numpy seed), against their labels, in float64 on the card: a = mean
+    distance to the own cluster's other points, b = the least mean
+    distance to another cluster, s = (b - a) / max(a, b) (0 for a point
+    alone in its cluster)."""
+
+    import numpy as np
+
+    idx = np.random.default_rng(seed).choice(len(labels), sample, replace=False)
+    Y = y[torch.from_numpy(idx).to(y.device)].double()
+    lab = torch.from_numpy(labels[idx].astype(np.int64)).to(y.device)
+    sq = (Y * Y).sum(dim=1)
+    D = (sq[:, None] + sq[None, :] - 2.0 * (Y @ Y.T)).clamp_(min=0.0).sqrt_()
+    D.fill_diagonal_(0.0)
+    onehot = torch.nn.functional.one_hot(lab, int(labels.max()) + 1).double()
+    sums, counts = D @ onehot, onehot.sum(dim=0)
+    own = counts[lab] - 1
+    a = sums.gather(1, lab[:, None])[:, 0] / own.clamp(min=1)
+    other = (sums / counts.clamp(min=1)).scatter_(1, lab[:, None], float("inf"))
+    other[:, counts == 0] = float("inf")
+    b = other.min(dim=1).values
+    s = torch.where(own > 0, (b - a) / torch.maximum(a, b), torch.zeros_like(a))
+    return float(s.mean())
+
+
+def phase_tsne(torch) -> None:
+    """Cell 11: ``tsne.run`` on ``make_blobs`` (10 clusters, d 50, seed 0),
+    perplexity 30, 500 epochs: the knn mode at n = 50,000 (the shape of
+    ``benchmarks/results_tsne_tpu.json``) and the exact mode at n =
+    10,000. Bars: the gradient at a seeded y against a float64 evaluation
+    of the same function on the card (1e-4 of max |g|), two evaluations
+    bit for bit equal, finite output, and a silhouette of at least 0.7
+    over 5,000 sampled points against the planted labels."""
+
+    from single_algebra_tpu_torch.models import tsne
+    from single_algebra_tpu_torch.models.umap import _knn_graph
+
+    dev = torch.device(DEVICE)
+
+    def step(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    failed = []
+    for mode, n in (("knn", TSNE_KNN_N), ("exact", TSNE_EXACT_N)):
+        x, labels = make_blobs(n)
+        cfg = tsne.TSNEConfig(perplexity=30.0, epochs=TSNE_EPOCHS, mode=mode)
+        xt = torch.from_numpy(x).to(dev)
+        graph_s = None
+        if mode == "knn":
+            k = int(min(n - 1, round(3 * cfg.perplexity)))
+            _, graph_s = step(lambda: _knn_graph(xt, k=k, block=min(2048, n)))
+            (src, dst, val, lengths), setup_s = step(lambda: tsne._knn_affinities(xt, cfg))
+            block = tsne._knn_block(n, cfg)
+
+            def grad(y, v=val):
+                return tsne._knn_grad(y, src, dst, v.to(y.dtype), 12.0, block=block,
+                                      lengths=lengths)
+        else:
+            P, setup_s = step(lambda: tsne._exact_affinities(xt, cfg))
+
+            def grad(y):
+                return tsne._exact_grad(y, P.to(y.dtype), 12.0)
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        y = 10.0 * torch.randn((n, cfg.output_dim), generator=gen, device=dev)
+        g1, g2 = grad(y), grad(y)
+        g64 = grad(y.double())
+        grad_err = float((g1.double() - g64).abs().max() / g64.abs().max())
+        identical = bool(torch.equal(g1, g2))
+        grad_ms = _time_ms(torch, lambda: grad(y), 5)
+        del g1, g2, g64
+        torch.cuda.reset_peak_memory_stats()
+        Y, total_s = step(lambda: tsne.run(x, cfg, device=DEVICE))
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(Y).all())
+        sil = silhouette_on_card(torch, Y, labels, SIL_SAMPLE) if finite else float("nan")
+        emit("tsne", mode=mode, n=n, d=x.shape[1], perplexity=cfg.perplexity, epochs=cfg.epochs,
+             total_s=total_s, setup_s=setup_s, knn_graph_s=graph_s,
+             epoch_ms=(total_s - setup_s) / cfg.epochs * 1e3, grad_ms=grad_ms,
+             grad_rel_err_f64=grad_err, grad_fail_above=TSNE_GRAD_FAIL,
+             grad_bit_identical=identical, finite=finite, silhouette=sil,
+             silhouette_sample=SIL_SAMPLE, silhouette_fail_below=SIL_FAIL,
+             peak_alloc_gb=peak / 1e9)
+        if not (grad_err <= TSNE_GRAD_FAIL and identical and finite and sil >= SIL_FAIL):
+            failed.append(mode)
+        del Y, xt
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"t-SNE {failed}: a bar of the tsne phase was not met")
+
+
 def phase_sparse_engine(torch, ctx: dict) -> None:
     """The gather engine (``SparseOperator``, ``engine("sparse")``) on the
     pipeline's log-normalized matrix (its ELL layouts cached):
@@ -1865,25 +2154,50 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    import single_algebra_tpu_torch  # noqa: F401  (fails outside the repo)
+    from single_algebra_tpu_torch.types import precision_policy  # fails outside the repo
 
+    # the entry points enter the policy themselves; the phases that call
+    # the port's internals directly (Gram tiers, breakdowns, products) run
+    # under it too
+    with precision_policy():
+        return _phases(torch)
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, then a ``seconds`` line: the smoke's time budget by
+    phase group."""
+
+    t0 = time.perf_counter()
+    out = fn(*args)
+    emit("seconds", of=name, s=time.perf_counter() - t0)
+    return out
+
+
+def _phases(torch) -> int:
+    t0 = time.perf_counter()
     phase_env(torch)
-    phase_build()
-    kern = phase_kernel(torch)
-    phase_gram_tiers(torch)
-    launches, kern["library_ms"], X = phase_main_path(torch, kern.pop("slab_widths"))
+    timed("build", phase_build)
+    kern = timed("kernel", phase_kernel, torch)
+    timed("gram_tiers", phase_gram_tiers, torch)
+    held = kern.pop("slab_widths")
+    launches, kern["library_ms"], X, ev_true = timed("main_path", phase_main_path, torch, held)
     torch.cuda.empty_cache()
-    ctx = phase_pipeline(torch, phase_stats(torch, X))
+    ctx = timed("pipeline", phase_pipeline, torch, timed("stats", phase_stats, torch, X))
+    launches += timed("streaming", phase_streaming, torch, X, ev_true, held, ctx["Xl64"])
     del X
-    phase_sparse_engine(torch, ctx)
-    phase_similarity(torch, ctx.pop("T"))
+    torch.cuda.empty_cache()
+    timed("sparse_engine", phase_sparse_engine, torch, ctx)
+    timed("similarity", phase_similarity, torch, ctx.pop("T"))
     del ctx
     torch.cuda.empty_cache()
-    phase_dense_path(torch)
+    timed("dense_path", phase_dense_path, torch)
     torch.cuda.empty_cache()
     tiled_kern = {}
-    phase_kernel_tiled(torch, tiled_kern)
-    tiled_launches = phase_tiled_path(torch, tiled_kern)
+    timed("kernel_tiled", phase_kernel_tiled, torch, tiled_kern)
+    tiled_launches = timed("tiled_path", phase_tiled_path, torch, tiled_kern)
+    torch.cuda.empty_cache()
+    timed("tsne", phase_tsne, torch)
+    emit("seconds", of="smoke", s=time.perf_counter() - t0)
     kernels = [dict(name="tiled_ell_densify_t", source=KERNEL_SRC, line=221,
                     launches=launches, **kern)]
     for name, line in (("tiled_ell_spmm_t", 135), ("tiled_ell_rmv_t", 299)):

@@ -17,27 +17,30 @@ the dense form fits), the Gram engine (``GramPCAEngine``: densify kernel,
 Gram contraction, p-space solve, projection), the tiled engine
 (``TiledSparseOperator``: ``tiled_ell_spmm_t`` / ``tiled_ell_rmv_t``
 kernels) and the gather engine (``SparseOperator``), with the randomized,
-Lanczos (the builders' default) and block-Lanczos solvers; and the
-``similarity`` measures.
+Lanczos (the builders' default) and block-Lanczos solvers; the
+``similarity`` measures; t-SNE (``models.tsne``, exact and knn modes) and
+single-device ``StreamingSparsePCA``. Every public fit, transform and
+product runs under :func:`precision_policy` (full float32, the caller's
+flags restored after).
 """
 
 from .types import (  # noqa: F401
     Direction,
     PowerIterationNormalizer,
     SVDMethod,
+    precision_policy,
     set_precision_policy,
 )
-
-set_precision_policy()
-
-from .sparse import SparseMatrix, csc_matrix, csr_matrix, random_sparse  # noqa: E402,F401
-from .models import (  # noqa: E402,F401
+from .sparse import SparseMatrix, csc_matrix, csr_matrix, random_sparse  # noqa: F401
+from .models import (  # noqa: F401
     MaskedSparsePCA,
     MaskedSparsePCABuilder,
     SparsePCA,
     SparsePCABuilder,
+    StreamingSparsePCA,
     make_engine_operator,
+    tsne,
 )
-from . import dense, similarity  # noqa: E402,F401
+from . import dense, similarity  # noqa: F401
 
 __version__ = "0.1.0"

@@ -150,8 +150,8 @@ def block_lanczos_svd(
 
     size = min(filled + 1, m)
     pb, s, qtb = torch.linalg.svd(assemble_B(size))
-    u_full = U[: size * b].T @ pb[:, :k].to(dtype)
-    v_full = V[: size * b].T @ qtb.T[:, :k].to(dtype)
+    u_full = U[: size * b].T @ _pad_to(pb, k).to(dtype)
+    v_full = V[: size * b].T @ _pad_to(qtb.T, k).to(dtype)
     if info is not None:
         info["steps"] = filled
     return SvdResult(u=u_full, s=_pad_to(s, k).to(dtype), vt=v_full.T)

@@ -69,16 +69,23 @@ def width_classes_np(w: np.ndarray) -> np.ndarray:
 
 
 def topk_psd_eigh(Gc: torch.Tensor, k: int):
-    """Exact top-k eigenpairs of a PSD matrix -> ``(s, vt)`` with
-    ``s = sqrt(eig)`` and the V-based svd_flip sign convention."""
+    """Exact top-k eigenpairs of a PSD matrix -> ``(s, vt)`` in its dtype,
+    with ``s = sqrt(eig)`` and the V-based svd_flip sign convention.
 
-    w, V = torch.linalg.eigh(Gc)  # ascending
+    On a CUDA device the eigendecomposition runs in float64: cuSOLVER's
+    float32 ``eigh`` of a 512-wide centered Gram left 8.1e-5 relative
+    error in its top eigenvalue on an H100, where LAPACK's float32 leaves
+    3.7e-7 and float64 1.2e-9 (the small SVDs of the Lanczos solvers run
+    in float64 for the same reason)."""
+
+    A = Gc.double() if Gc.device.type == "cuda" else Gc
+    w, V = torch.linalg.eigh(A)  # ascending
     s = torch.sqrt(torch.clamp(w.flip(0)[:k], min=0.0))
     vt = V.flip(1)[:, :k].T
     idx = torch.argmax(torch.abs(vt), dim=1)
     signs = torch.sign(vt[torch.arange(k, device=vt.device), idx])
     signs = torch.where(signs == 0, torch.ones_like(signs), signs)
-    return s, vt * signs[:, None]
+    return s.to(Gc.dtype), (vt * signs[:, None]).to(Gc.dtype)
 
 
 # Grams at or below this width get the exact eigh solve; above it, the
@@ -260,6 +267,10 @@ class GramPCAEngine:
             if b <= budget_bytes:
                 return ct, b
         return best
+
+    @classmethod
+    def payload_bytes(cls, m) -> int:
+        return cls.choose_col_tile(m)[1]
 
     @classmethod
     def fits(cls, m, budget_bytes: int | None = None) -> bool:

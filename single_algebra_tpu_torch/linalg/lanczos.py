@@ -81,7 +81,13 @@ def _inv_or_zero(a: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def _pad_to(s: torch.Tensor, k: int) -> torch.Tensor:
-    return s[:k] if s.shape[0] >= k else torch.nn.functional.pad(s, (0, k - s.shape[0]))
+    """The first ``k`` entries of the last axis, zero-padded to ``k`` when
+    there are fewer (``k`` > min(n, p): the surplus components are 0, as
+    the Gram engine returns them)."""
+
+    if s.shape[-1] >= k:
+        return s[..., :k]
+    return torch.nn.functional.pad(s, (0, k - s.shape[-1]))
 
 
 def lanczos_svd(
@@ -179,8 +185,8 @@ def lanczos_svd(
 
     size = min(filled + 1, m)
     pb, s, qtb = torch.linalg.svd(bidiagonal(size))
-    u_full = U[:size].T @ pb[:, :k].to(dtype)  # [n, k]
-    v_full = V[:size].T @ qtb.T[:, :k].to(dtype)  # [p, k]
+    u_full = U[:size].T @ _pad_to(pb, k).to(dtype)  # [n, k]
+    v_full = V[:size].T @ _pad_to(qtb.T, k).to(dtype)  # [p, k]
     if info is not None:
         info["steps"] = filled
     return SvdResult(u=u_full, s=_pad_to(s, k).to(dtype), vt=v_full.T)

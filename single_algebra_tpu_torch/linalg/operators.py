@@ -23,7 +23,8 @@ any object with ``shape``, ``dtype``, ``device``, ``mv(B)`` (``A @ B``) and
   column-tiled payload, plus plain-ELL overflow side arrays.
 
 Products run in full float32 under the package's precision policy
-(``types.set_precision_policy``), the counterpart of the JAX package's
+(``types.precision_policy``, entered by every public entry point), the
+counterpart of the JAX package's
 ``Precision.HIGHEST`` dots.
 
 **The bf16 operand split.** The JAX package splits a float32 operand
@@ -201,7 +202,11 @@ class CenteredOperator:
     ``A^T (C - 1 cbar^T) - mu (1^T (C - 1 cbar^T))`` with
     ``cbar = (1^T C)/n``, so no float32 partial sum is ever stored at the
     uncentered column scale (the direct form floors the relative accuracy
-    of ``Q^T A_c`` at ~``eps32 * mu/sigma``; see the JAX class)."""
+    of ``Q^T A_c`` at ~``eps32 * mu/sigma``; see the JAX class).
+
+    A float64 ``mu`` over a float32 engine promotes, as ``jnp`` does: the
+    rank-1 terms and the products come out in float64, and so does
+    :attr:`dtype` (the randomized solve draws its sketch in it)."""
 
     base: object
     mu: torch.Tensor  # [p]
@@ -212,7 +217,7 @@ class CenteredOperator:
 
     @property
     def dtype(self):
-        return self.base.dtype
+        return torch.promote_types(self.base.dtype, self.mu.dtype)
 
     @property
     def device(self):
@@ -224,9 +229,14 @@ class CenteredOperator:
         Cd = C - cbar[None, :]
         return Cd, Cd.sum(dim=0)
 
+    def _corr(self, B):
+        """``mu^T B`` in the promoted dtype of the two."""
+
+        dt = torch.promote_types(self.mu.dtype, B.dtype)
+        return self.mu.to(dt) @ B.to(dt)
+
     def mv(self, B):
-        corr = self.mu @ B  # [k]
-        return self.base.mv(B) - corr[None, :]
+        return self.base.mv(B) - self._corr(B)[None, :]
 
     def rmv(self, C):
         Cd, t = self._deflate(C)
@@ -234,7 +244,7 @@ class CenteredOperator:
 
     def _mv_with(self, name, B):
         base = getattr(self.base, name, self.base.mv)
-        return base(B) - (self.mu @ B)[None, :]
+        return base(B) - self._corr(B)[None, :]
 
     def _rmv_with(self, name, C):
         base = getattr(self.base, name, self.base.rmv)

@@ -38,7 +38,7 @@ import torch
 
 from ..linalg.gram import GramPCAEngine, gram_pca_graph
 from ..linalg.operators import CenteredOperator, MaskedOperator
-from ..types import SVDMethod
+from ..types import SVDMethod, precision_policy
 from .pca import (
     _LazyPCAState,
     _as_matrix,
@@ -92,6 +92,7 @@ class MaskedSparsePCA(_LazyPCAState):
     def _mask_idx(self, device) -> torch.Tensor:
         return torch.from_numpy(np.where(self.mask)[0]).to(device)
 
+    @precision_policy()
     def fit(self, x, device="cuda") -> "MaskedSparsePCA":
         m = _as_matrix(x, device)
         n_samples, n_cols = m.shape
@@ -161,6 +162,7 @@ class MaskedSparsePCA(_LazyPCAState):
             print(f"  Fit took {time.perf_counter() - t0:.3f}s")
         return self
 
+    @precision_policy()
     def transform(self, x) -> torch.Tensor:
         self._check_fitted()
         m = _as_matrix(x, self.components_.device)
@@ -172,6 +174,7 @@ class MaskedSparsePCA(_LazyPCAState):
             op = CenteredOperator(op, self._mean_device()[idx])
         return _project(op, self.components_.T)
 
+    @precision_policy()
     def fit_transform(self, x, device="cuda") -> torch.Tensor:
         m = _as_matrix(x, device)  # convert once; fit and transform share layouts
         self._want_transform = True
@@ -183,6 +186,7 @@ class MaskedSparsePCA(_LazyPCAState):
         self._fitted_transform = None
         return T
 
+    @precision_policy()
     def inverse_transform(self, T) -> torch.Tensor:
         """Scores back to FULL feature width [n, p]: masked columns get
         ``T @ components_`` (+ their mean when centered); the columns the

@@ -42,7 +42,7 @@ from ..linalg.operators import (
 )
 from ..linalg.svd import randomized_svd, svd_flip
 from ..sparse.matrix import SparseMatrix
-from ..types import SVDMethod
+from ..types import SVDMethod, precision_policy
 
 __all__ = ["SparsePCA", "SparsePCABuilder", "make_engine_operator"]
 
@@ -329,6 +329,7 @@ class SparsePCA(_LazyPCAState):
 
     # -- fitting -------------------------------------------------------
 
+    @precision_policy()
     def fit(self, x) -> "SparsePCA":
         m = _as_matrix(x)
         n_samples, n_features = m.shape
@@ -415,6 +416,7 @@ class SparsePCA(_LazyPCAState):
             return cache.get("auto") or next(iter(cache.values()))
         return make_engine_operator(m, self.engine)
 
+    @precision_policy()
     def transform(self, x) -> torch.Tensor:
         self._check_fitted()
         m = _as_matrix(x, self.components_.device)
@@ -423,6 +425,7 @@ class SparsePCA(_LazyPCAState):
             op = CenteredOperator(op, self._mean_device())
         return _project(op, self.components_.T)
 
+    @precision_policy()
     def fit_transform(self, x) -> torch.Tensor:
         m = _as_matrix(x)
         self._want_transform = True
@@ -434,6 +437,7 @@ class SparsePCA(_LazyPCAState):
         self._fitted_transform = None
         return T
 
+    @precision_policy()
     def inverse_transform(self, T) -> torch.Tensor:
         """``T @ components_`` (+ ``mean_`` when centered)."""
 

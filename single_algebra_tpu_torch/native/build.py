@@ -95,6 +95,8 @@ def get_lib():
         u16p = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
         c64 = ctypes.c_int64
 
+        lib.csr_to_ell_f32.argtypes = [i64p, i32p, f32p, c64, c64, f32p, i32p, i32p]
+        lib.csr_to_ell_f32.restype = None
         lib.csr_transpose_f32.argtypes = [
             i64p, i32p, f32p, c64, c64, i64p, i32p, f32p, i64p,
         ]
@@ -128,6 +130,29 @@ def get_lib():
         lib.f32_bf16_exact.restype = ctypes.c_int32
         _lib = lib
         return _lib
+
+
+def csr_to_ell(indptr, indices, data, n_rows, width, rows_padded):
+    """Native CSR -> padded ELL ``(ell_data, ell_ids, row_nnz)``, or None
+    (use the numpy fallback)."""
+
+    lib = get_lib()
+    if lib is None or data.dtype != np.float32:
+        return None
+    ell_data = np.zeros((rows_padded, width), np.float32)
+    ell_ids = np.zeros((rows_padded, width), np.int32)
+    row_nnz = np.zeros(rows_padded, np.int32)
+    lib.csr_to_ell_f32(
+        np.ascontiguousarray(indptr, np.int64),
+        np.ascontiguousarray(indices, np.int32),
+        np.ascontiguousarray(data, np.float32),
+        n_rows,
+        width,
+        ell_data,
+        ell_ids,
+        row_nnz,
+    )
+    return ell_data, ell_ids, row_nnz
 
 
 def csr_transpose(indptr, indices, data, n_rows, n_cols):

@@ -30,6 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .types import precision_policy
+
 __all__ = [
     "SimilarityMeasure",
     "CosineSimilarity",
@@ -98,6 +100,7 @@ class SimilarityMeasure:
 class CosineSimilarity(SimilarityMeasure):
     """dot / (||a|| ||b||); 0 when the norm product is at most eps."""
 
+    @precision_policy()
     def pairwise(self, X, Y=None) -> torch.Tensor:
         X, Y = self._pair(X, Y)
         nx = torch.sqrt((X * X).sum(dim=1))
@@ -112,6 +115,7 @@ class EuclideanSimilarity(SimilarityMeasure):
         super().__init__(device)
         self.gamma = float(gamma)
 
+    @precision_policy()
     def pairwise(self, X, Y=None) -> torch.Tensor:
         X, Y = self._pair(X, Y)
         # (|x|^2 + |y|^2) - 2<x, y>, in that order, then exp(-gamma * dist),
@@ -124,6 +128,7 @@ class EuclideanSimilarity(SimilarityMeasure):
 class PearsonSimilarity(SimilarityMeasure):
     """Pearson correlation; 0 when the denominator is at most eps."""
 
+    @precision_policy()
     def pairwise(self, X, Y=None) -> torch.Tensor:
         X, Y = self._pair(X, Y)
         Xc = X - X.mean(dim=1, keepdim=True)

@@ -5,8 +5,9 @@ unchanged from ``single_algebra_tpu/sparse/convert.py`` (pure numpy plus
 the native converters of ``native/``): they are host code, so the port
 reuses them as they are and its payloads are byte-identical to the JAX
 package's. The tiled payload layout is described in ``ops/densify.py``.
-``csr_to_ell_numpy`` runs its numpy path only (the port binds no native
-plain-ELL converter); its output is the same.
+``csr_to_ell_numpy`` sends float32 inputs to the native converter, as
+the JAX package does, and keeps numpy for float64 and when no native
+library is present; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -63,6 +64,13 @@ def csr_to_ell_numpy(
         raise ValueError(f"width {width} < max row nnz {max_nnz}")
     if rows_padded is None:
         rows_padded = pad_rows(n_rows)
+
+    if n_rows > 0 and data.dtype == np.float32:
+        from ..native import build as _native
+
+        nat = _native.csr_to_ell(indptr, indices, data, n_rows, width, rows_padded)
+        if nat is not None:
+            return nat
 
     ell_data = np.zeros((rows_padded, width), dtype=data.dtype)
     ell_ids = np.zeros((rows_padded, width), dtype=np.int32)

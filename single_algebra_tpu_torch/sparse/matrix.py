@@ -44,7 +44,7 @@ import torch
 
 from ..ops import stats as _st
 from ..ops.spmm import ell_onehot_spmm, ell_spmm
-from ..types import Direction, canonical_float_dtype, torch_dtype
+from ..types import Direction, canonical_float_dtype, precision_policy, torch_dtype
 from . import convert as _cv
 
 __all__ = ["SparseMatrix", "csr_matrix", "csc_matrix", "random_sparse"]
@@ -770,12 +770,14 @@ class SparseMatrix:
     def _operand(self, B) -> torch.Tensor:
         return torch.as_tensor(B, device=self.device)
 
+    @precision_policy()
     def matmul_dense(self, B) -> torch.Tensor:
         """``self @ B`` for dense ``B [ncols, k]`` -> ``[nrows, k]``."""
 
         m = self._layout_for("row")
         return ell_spmm(m.ell_data, m.ell_ids, self._operand(B))[: self.nrows]
 
+    @precision_policy()
     def rmatmul_dense(self, C) -> torch.Tensor:
         """``self.T @ C`` for dense ``C [nrows, k]`` -> ``[ncols, k]``."""
 

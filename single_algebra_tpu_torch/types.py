@@ -5,15 +5,17 @@ Counterpart of ``single_algebra_tpu/types.py``: the same ``Direction``,
 same in both packages) and the f32/f64 value policy.
 
 The JAX package runs every dot at ``Precision.HIGHEST`` (its
-``MATMUL_PRECISION``). The port's equivalent is a process-wide policy:
-float32 matrix products run in full IEEE float32, never TF32.
-:func:`set_precision_policy` states it and is applied once, when the
-package is imported. The f32 Gram tier, the projection and the
-randomized solve all assume it.
+``MATMUL_PRECISION``), whatever the caller's global settings. The port's
+equivalent is :func:`precision_policy`, a context manager that every
+public fit, transform and product entry point enters: float32 matrix
+products run in full IEEE float32, never TF32, for the length of the
+call, and the caller's flags are restored on exit. The f32 Gram tier,
+the projection and the randomized solve all assume it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 
@@ -86,6 +88,30 @@ def set_precision_policy() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@contextlib.contextmanager
+def precision_policy():
+    """Hold :func:`set_precision_policy` for the length of a ``with``
+    block (or of a call, as a decorator: ``@precision_policy()``), then
+    put back the caller's TF32, bf16-reduction and float32-precision
+    flags, whatever they were."""
+
+    mm = torch.backends.cuda.matmul
+    saved = (
+        torch.get_float32_matmul_precision(),
+        mm.allow_tf32,
+        mm.allow_bf16_reduced_precision_reduction,
+        torch.backends.cudnn.allow_tf32,
+    )
+    set_precision_policy()
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        mm.allow_tf32 = saved[1]
+        mm.allow_bf16_reduced_precision_reduction = saved[2]
+        torch.backends.cudnn.allow_tf32 = saved[3]
 
 
 _SUPPORTED_FLOATS = (np.float32, np.float64)

@@ -13,6 +13,7 @@ import torch
 
 from single_algebra_tpu_torch import SparseMatrix, SparsePCABuilder
 from single_algebra_tpu_torch.linalg.gram import GramPCAEngine
+from single_algebra_tpu_torch.models import StreamingSparsePCA
 from single_algebra_tpu_torch.models import pca as tpca
 from single_algebra_tpu_torch.ops import cuda_lib
 from single_algebra_tpu_torch.types import PowerIterationNormalizer as PIN
@@ -147,3 +148,97 @@ def test_cuda_pipeline_runs_on_the_card(cuda, monkeypatch):
         other = MaskedSparsePCABuilder().mask(mask).n_components(4).engine(engine).build()
         other.fit(Xl)
         assert np.abs(np.asarray(other.explained_variance_) - evr).max() <= 1e-4 * evr[0]
+
+
+def blobs(n_per, n_clusters=3, d=10, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, d)) * 12.0
+    x = np.vstack([c + rng.standard_normal((n_per, d)) for c in centers])
+    return x.astype(np.float32), np.repeat(np.arange(n_clusters), n_per)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("mode", ["exact", "knn"])
+def test_cuda_tsne_runs_on_the_card(cuda, mode):
+    """``tsne.run`` with no device runs on the card, separates planted
+    blobs, repeats bit for bit, and its gradient at a seeded y agrees with
+    a float64 evaluation on the card."""
+
+    from single_algebra_tpu_torch.models import tsne
+
+    x, labels = blobs(200)
+    cfg = tsne.TSNEConfig(perplexity=15.0, epochs=300, exaggeration_epochs=100, mode=mode)
+    y = tsne.run(x, cfg)
+    assert y.device.type == "cuda" and bool(torch.isfinite(y).all())
+    assert torch.equal(y, tsne.run(x, cfg))
+    yn = y.cpu().numpy()
+    cents = np.stack([yn[labels == c].mean(0) for c in range(3)])
+    within = np.mean([np.linalg.norm(yn[labels == c] - cents[c], axis=1).mean()
+                      for c in range(3)])
+    d = np.linalg.norm(cents[:, None] - cents[None], axis=-1)[np.triu_indices(3, 1)]
+    assert d.min() / within > 3.0
+    xt = torch.from_numpy(x).to(cuda)
+    yt = torch.randn((len(x), 2), generator=torch.Generator(cuda).manual_seed(1),
+                     device=cuda)
+    if mode == "exact":
+        p = tsne._exact_affinities(xt, cfg)
+        g = tsne._exact_grad(yt, p, 12.0)
+        g64 = tsne._exact_grad(yt.double(), p.double(), 12.0)
+    else:
+        src, dst, val, lengths = tsne._knn_affinities(xt, cfg)
+        block = tsne._knn_block(len(x), cfg)
+        g = tsne._knn_grad(yt, src, dst, val, 12.0, block=block, lengths=lengths)
+        g64 = tsne._knn_grad(yt.double(), src, dst, val.double(), 12.0, block=block,
+                             lengths=lengths)
+        assert torch.equal(g, tsne._knn_grad(yt, src, dst, val, 12.0, block=block,
+                                             lengths=lengths))
+    assert float((g.double() - g64).abs().max() / g64.abs().max()) <= 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_cuda_streaming_pca_runs_on_the_card(cuda):
+    """``StreamingSparsePCA`` with no device: bf16-exact counts densify to
+    bf16 and their scores to float32, log values to float32 in both
+    passes; the model is the CPU stream's."""
+
+    X = clustered_counts(20000, 300, seed=8)
+    for values, fit_dtype in ((X, "bfloat16"), (X.copy(), "float32")):
+        if fit_dtype == "float32":
+            values.data = np.log1p(values.data) * np.float32(1.37)
+        ref = StreamingSparsePCA(4, 300, device="cpu")
+        pca = StreamingSparsePCA(4, 300)
+        cuda_lib.reset_launch_counts()
+        for r0 in range(0, 20000, 7000):
+            pca.partial_fit(values[r0:r0 + 7000])
+            ref.partial_fit(values[r0:r0 + 7000])
+        pca.finalize()
+        ref.finalize()
+        T = pca.transform(values)
+        slabs = sum(-(-min(7000, 20000 - r0) // 8192) for r0 in range(0, 20000, 7000))
+        assert cuda_lib.densify_launches_by_dtype == (
+            {fit_dtype: slabs, "float32": slabs} if fit_dtype == "bfloat16"
+            else {"float32": 2 * slabs})
+        assert pca.components_.device.type == "cuda" and T.shape == (20000, 4)
+        np.testing.assert_allclose(pca.explained_variance_, ref.explained_variance_,
+                                   rtol=1e-5)
+        Tr = ref.transform(values)
+        signs = np.sign((T * Tr).sum(0))
+        assert np.abs(T * signs - Tr).max() <= 1e-4 * np.abs(Tr).max()
+
+
+@pytest.mark.requires_cuda
+def test_cuda_small_gram_eigh_matches_float64(cuda):
+    """The small-Gram solve on the card: cuSOLVER's float32 ``eigh`` left
+    8.1e-5 relative error in this centered Gram's top eigenvalue, so
+    ``topk_psd_eigh`` decomposes in float64 there."""
+
+    from single_algebra_tpu_torch.linalg.gram import topk_psd_eigh
+
+    X = clustered_counts(20000, 300, seed=8).toarray().astype(np.float64)
+    G = torch.from_numpy(X.T @ X).float().to(cuda)
+    mu = torch.from_numpy(X.mean(axis=0)).float().to(cuda)
+    s, vt = topk_psd_eigh(G - 20000.0 * (mu[:, None] * mu[None, :]), 4)
+    assert s.dtype == vt.dtype == torch.float32 and tuple(vt.shape) == (4, 300)
+    ev = s.double().cpu().numpy() ** 2
+    ev_true = np.linalg.svd(X - X.mean(axis=0), compute_uv=False)[:4] ** 2
+    assert np.abs(ev - ev_true).max() <= 1e-6 * ev_true[0]

@@ -155,3 +155,34 @@ def test_plain_ell_matches_jax():
     for w in (0, 5, 100, 129):
         assert tcv.pad_width(w) == jcv.pad_width(w)
         assert tcv.pad_rows(w) == jcv.pad_rows(w)
+
+
+@pytest.mark.parametrize("rows_padded", [None, 512])
+def test_csr_to_ell_native_route_matches_numpy(monkeypatch, rows_padded):
+    """float32 inputs take the bound native converter (as the JAX package
+    routes them), float64 inputs and a missing native library the numpy
+    path: identical arrays, padding rows and rows at full width included."""
+
+    from single_algebra_tpu_torch.native import build as nb
+
+    indptr, indices, data, X = _csr(11)
+    indptr = np.concatenate([indptr, np.full(4, indptr[-1])])  # 4 empty rows at the end
+    n = len(indptr) - 1
+    width = int(np.diff(indptr).max())  # the heavy rows fill it exactly
+    assert nb.get_lib() is not None and nb.get_lib().csr_to_ell_f32.argtypes
+    calls = []
+    real = nb.csr_to_ell
+    monkeypatch.setattr(nb, "csr_to_ell", lambda *a: calls.append(a[2].dtype) or real(*a))
+    nat = tcv.csr_to_ell_numpy(indptr, indices, data, n, width, rows_padded)
+    assert calls == [np.float32]
+    d64 = tcv.csr_to_ell_numpy(indptr, indices, data.astype(np.float64), n, width,
+                               rows_padded)
+    assert calls == [np.float32] and d64[0].dtype == np.float64
+    monkeypatch.setattr(nb, "get_lib", lambda: None)
+    ref = tcv.csr_to_ell_numpy(indptr, indices, data, n, width, rows_padded)
+    _assert_same(nat, ref)
+    np.testing.assert_array_equal(d64[0], ref[0].astype(np.float64))
+    R = rows_padded or tcv.pad_rows(n)
+    assert nat[0].shape == (R, width) and (nat[2][n:] == 0).all()
+    assert (nat[2][:n] == width).any()
+    _assert_same(nat, jcv.csr_to_ell_numpy(indptr, indices, data, n, width, rows_padded))

@@ -234,3 +234,15 @@ def test_budget_rule():
     m = SparseMatrix.from_scipy(sp.random(50, 41000, density=0.01, format="csr"),
                                 device="cpu")
     assert not GramPCAEngine.fits(m)  # p > 40960: G alone is too wide
+
+
+def test_payload_bytes_brackets_fits(counts):
+    """``payload_bytes`` is the chosen column tile's charged plan, as in the
+    JAX package (its ``tests/test_engine_select.py`` check)."""
+
+    m = SparseMatrix.from_scipy(counts, device="cpu")
+    gram_b = GramPCAEngine.payload_bytes(m)
+    assert gram_b == GramPCAEngine.choose_col_tile(m)[1]
+    assert gram_b == jgram.GramPCAEngine.payload_bytes(JMatrix.from_scipy(counts))
+    assert GramPCAEngine.fits(m, budget_bytes=gram_b)
+    assert not GramPCAEngine.fits(m, budget_bytes=gram_b // 4)

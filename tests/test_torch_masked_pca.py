@@ -226,3 +226,16 @@ def test_masked_operator_is_what_non_gram_engines_solve(counts, mask, monkeypatc
     MaskedSparsePCABuilder().mask(mask).n_components(K).engine("dense").build().fit(
         SparseMatrix.from_scipy(counts, device="cpu"))
     assert isinstance(seen[0], MaskedOperator) and seen[0].shape == (500, 70)
+
+
+@pytest.mark.parametrize("method", ["randomized", "lanczos"])
+def test_dense_engine_float64_centered_matches_jax(counts, mask, method):
+    """The masked model's centered operator over the float32 densified
+    engine with a float64 mean promotes as ``jnp`` does."""
+
+    tp, T, jp, Tj = fit_both(counts.astype(np.float64), mask, "dense", method)
+    assert T.dtype == Tj.dtype == np.float64
+    assert tp.components_.numpy().dtype == np.asarray(jp.components_).dtype
+    assert_match(tp, T, jp, Tj)
+    T2 = tp.transform(SparseMatrix.from_scipy(counts.astype(np.float64), device="cpu"))
+    np.testing.assert_allclose(T2.numpy(), T, rtol=0, atol=1e-9 * np.abs(T).max())

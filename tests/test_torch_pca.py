@@ -12,6 +12,7 @@ import os
 import re
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -22,7 +23,11 @@ import single_algebra_tpu.models as jmodels
 from single_algebra_tpu import SparseMatrix as JMatrix
 from single_algebra_tpu.types import PowerIterationNormalizer as JPIN
 from single_algebra_tpu.types import SVDMethod as JSVD
-from single_algebra_tpu_torch import SparseMatrix, SparsePCA, SparsePCABuilder
+from single_algebra_tpu_torch import (
+    MaskedSparsePCABuilder, SparseMatrix, SparsePCA, SparsePCABuilder,
+)
+from single_algebra_tpu_torch.models import StreamingSparsePCA, tsne
+from single_algebra_tpu_torch.similarity import CosineSimilarity
 from single_algebra_tpu_torch.linalg import gram as tgram
 from single_algebra_tpu_torch.models import pca as tpca
 from single_algebra_tpu_torch.types import PowerIterationNormalizer as PIN
@@ -463,3 +468,160 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("random", [True, False], ids=["randomized", "lanczos"])
+def test_dense_engine_float64_centered_matches_jax(counts, random):
+    """A float64 matrix on the densified (float32) engine, centered: the
+    float64 mean promotes the centered products as ``jnp`` does, through
+    ``fit``, ``fit_transform`` and ``transform``, with the JAX package's
+    dtypes (the randomized solve then runs in float64; Lanczos solves the
+    raw float32 engine and projects in float64)."""
+
+    X = counts.astype(np.float64)
+    tm = SVDMethod.random(10, 7, PIN.QR) if random else SVDMethod.lanczos()
+    jm = JSVD.random(10, 7, JPIN.QR) if random else JSVD.lanczos()
+    tp = SparsePCABuilder().n_components(4).svd_method(tm).engine("dense").build()
+    jp = jmodels.SparsePCABuilder().n_components(4).svd_method(jm).engine("dense").build()
+    m, jm_ = SparseMatrix.from_scipy(X, device="cpu"), JMatrix.from_scipy(X)
+    T = tp.fit_transform(m).numpy()
+    Tj = np.asarray(jp.fit_transform(jm_))
+    assert T.dtype == Tj.dtype == np.float64
+    assert tp.components_.numpy().dtype == np.asarray(jp.components_).dtype
+    assert tp.explained_variance_.dtype == np.asarray(jp.explained_variance_).dtype
+    evj = np.asarray(jp.explained_variance_, np.float64)
+    assert np.abs(tp.explained_variance_ - evj).max() <= 1e-4 * evj[0]
+    assert np.abs(T - Tj).max() <= 1e-3 * np.abs(Tj).max()
+    T2, T2j = tp.transform(m).numpy(), np.asarray(jp.transform(jm_))
+    assert T2.dtype == T2j.dtype == np.float64
+    assert np.abs(T2 - T2j).max() <= 1e-3 * np.abs(T2j).max()
+    np.testing.assert_allclose(T2, T, rtol=0, atol=1e-9 * np.abs(T).max())
+    tq = SparsePCABuilder().n_components(4).svd_method(tm).engine("dense").build()
+    tq.fit(m)
+    np.testing.assert_allclose(tq.explained_variance_, tp.explained_variance_, rtol=1e-12)
+
+
+@pytest.mark.parametrize("engine", ["dense", "tiled", "sparse"])
+@pytest.mark.parametrize("block", [None, 4])
+def test_more_components_than_min_dim_match_jax_gram(engine, block):
+    """k = 30 > min(60, 25): every Lanczos solver returns k explained
+    variances (the surplus 0) and ``components_`` of shape (k, p), as the
+    JAX Gram engine does."""
+
+    X = cluster_counts(60, 25, n_clusters=4, seed=3).astype(np.float32)
+    tp = SparsePCABuilder().n_components(30).engine(engine).lanczos_block(block).build()
+    T = tp.fit_transform(SparseMatrix.from_scipy(X, device="cpu")).numpy()
+    with warnings.catch_warnings():  # the Gram engine ignores lanczos_block, and says so
+        warnings.simplefilter("ignore", UserWarning)
+        jp = (jmodels.SparsePCABuilder().n_components(30).engine("gram")
+              .lanczos_block(block).build())
+        Tj = np.asarray(jp.fit_transform(JMatrix.from_scipy(X)))
+    ev, evj = tp.explained_variance_, np.asarray(jp.explained_variance_)
+    assert ev.shape == evj.shape == (30,)
+    assert np.abs(ev - evj).max() <= 1e-4 * evj[0]
+    assert (ev[25:] <= 1e-6 * ev[0]).all()  # the surplus is 0 up to roundoff
+    C, Cj = tp.components_.numpy(), np.asarray(jp.components_)
+    assert C.shape == Cj.shape == (30, 25) and T.shape == Tj.shape == (60, 30)
+    assert np.isfinite(C).all() and np.isfinite(T).all()
+    assert np.abs(C[:5] - Cj[:5]).max() <= 1e-3
+    assert np.abs(T[:, :5] - Tj[:, :5]).max() <= 1e-3 * np.abs(Tj).max()
+
+
+def test_tsne_and_streaming_import_no_jax_ml_dtypes_or_sklearn():
+    code = (
+        "import sys, numpy as np, scipy.sparse as sp\n"
+        "from single_algebra_tpu_torch.models import tsne, streaming_pca\n"
+        "x = np.random.default_rng(0).standard_normal((40, 5))\n"
+        "cfg = tsne.TSNEConfig(perplexity=5.0, epochs=3)\n"
+        "assert tsne.run(x, cfg, device='cpu').shape == (40, 2)\n"
+        "cfg = tsne.TSNEConfig(perplexity=5.0, epochs=3, mode='knn')\n"
+        "assert tsne.run(x, cfg, device='cpu').shape == (40, 2)\n"
+        "X = sp.random(300, 40, density=0.2, format='csr', random_state=0)\n"
+        "p = streaming_pca.StreamingSparsePCA(3, 40, device='cpu').partial_fit(X).finalize()\n"
+        "assert p.transform(X).shape == (300, 3)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'single_algebra_tpu', 'ml_dtypes', 'sklearn'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def _cpu(X):
+    return SparseMatrix.from_scipy(X, device="cpu")
+
+
+ENTRY_POINTS = {
+    "SparsePCA.fit": lambda X: SparsePCABuilder().n_components(3).engine("gram").svd_method(
+        SVDMethod.random(10, 7, PIN.QR)).build().fit(_cpu(X)),
+    "SparsePCA.fit_transform": lambda X: SparsePCABuilder().n_components(3).engine(
+        "dense").build().fit_transform(_cpu(X)),
+    "SparseMatrix.matmul_dense": lambda X: _cpu(X) @ torch.ones((X.shape[1], 2)),
+    "MaskedSparsePCA.fit": lambda X: MaskedSparsePCABuilder().mask(
+        np.arange(X.shape[1]) % 2 == 0).n_components(2).engine("sparse").build().fit(_cpu(X)),
+    "CosineSimilarity.pairwise": lambda X: CosineSimilarity(device="cpu").pairwise(
+        torch.from_numpy(X[:20].toarray())),
+    "StreamingSparsePCA": lambda X: StreamingSparsePCA(
+        3, X.shape[1], device="cpu").partial_fit(X).finalize(),
+    "tsne.run": lambda X: tsne.run(X[:100].toarray(), tsne.TSNEConfig(
+        perplexity=5.0, epochs=2), device="cpu"),
+}
+
+
+@pytest.fixture
+def callers_flags():
+    """TF32 on, "high" float32 precision and bf16 reduced-precision
+    reduction on, as a caller may set them after importing the port; the
+    process's own flags come back afterwards."""
+
+    mm = torch.backends.cuda.matmul
+    saved = (torch.get_float32_matmul_precision(), mm.allow_tf32,
+             mm.allow_bf16_reduced_precision_reduction, torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision("high")
+    mm.allow_tf32 = True
+    mm.allow_bf16_reduced_precision_reduction = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield ("high", True, True, True)
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        mm.allow_tf32 = saved[1]
+        mm.allow_bf16_reduced_precision_reduction = saved[2]
+        torch.backends.cudnn.allow_tf32 = saved[3]
+
+
+def _flags():
+    mm = torch.backends.cuda.matmul
+    return (torch.get_float32_matmul_precision(), mm.allow_tf32,
+            mm.allow_bf16_reduced_precision_reduction, torch.backends.cudnn.allow_tf32)
+
+
+class _ProductSpy(torch.overrides.TorchFunctionMode):
+    """Records the precision flags at every matrix product torch runs."""
+
+    PRODUCTS = {"mm", "matmul", "addmm", "addmm_", "bmm", "baddbmm", "mv",
+                "__matmul__", "__rmatmul__", "_int_mm", "einsum"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in self.PRODUCTS:
+            self.seen.append(_flags())
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_precision_policy_holds_inside_each_entry_point(counts, callers_flags, entry):
+    """Flags the caller flips after import do not reach the port's
+    products: every matrix product inside a public entry point sees full
+    float32, and the caller's flags are back after it returns."""
+
+    spy = _ProductSpy()
+    with spy:
+        ENTRY_POINTS[entry](counts)
+    assert spy.seen, "the entry point made no matrix product"
+    assert set(spy.seen) == {("highest", False, False, False)}
+    assert _flags() == callers_flags
