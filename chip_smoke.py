@@ -156,11 +156,54 @@ The JAX package's models beyond PCA:
    evaluations bit for bit equal, finite output, the silhouette of 5,000
    sampled points against the planted labels (fail below 0.7).
 
+The mesh layer (``parallel/``, the counterpart of the JAX package's
+``__graft_entry__.dryrun_multichip``), on a mesh of four entries that all
+name this one card (``Mesh((cuda:0,) * 4)``: every slab's kernels and
+every reduction run on it; no transfer between cards is measured). Each
+case runs beside the single-card phase whose matrix and float64 truth it
+reuses, after that phase's engine is freed, and prints ``mesh`` lines
+with the card's name and power limit:
+
+20. ``mesh`` ``gram`` (after ``main_path``): ``sharded_gram_pca`` on the
+   north star's counts, cold and warm: EV within 1e-5 of the float64 truth
+   and within 1e-6 (of the largest) of the single-card Gram fit, the first
+   1,000 rows' scores within 1e-5 of max |score| of the single card's,
+   densify launches = 2 x the slabs' sub-slabs (Gram pass, projection) at
+   held widths; per-slab Gram and reduction ms, peak memory. ``sparse``:
+   the gather engine (``ShardedSpMM``) with ``lanczos_block(8)`` on the
+   same counts against the float64 UNCENTERED truth (1e-5). ``auto``:
+   ``choose_sharded_engine`` must choose an engine whose payload fits ONE
+   card's budget (four entries on one card share it).
+21. ``mesh`` ``streaming`` (after ``streaming``): ``StreamingSparsePCA(
+   mesh=)`` over the same 131,072-row chunks: EV within 1e-6 (of the
+   largest) of the single-card stream, the first chunk's scores within
+   1e-5 of max |score|, densify launches = slabs (bf16, fit) + slabs
+   (float32, transform) at held widths, the idle share of a
+   ``partial_fit``.
+22. ``mesh`` ``dense`` (inside ``dense_path``): the builder's defaults
+   (Lanczos) on ``ShardedDensified``, against the densified path's float64
+   uncentered truth (1e-5); warm seconds and steps.
+23. ``mesh`` ``tiled`` (inside ``tiled_path``): ``ShardedTiled``. Both
+   kernels are first held against their plain versions on slab 0's
+   payload at the path's operand shapes (``kernel_spmm`` /
+   ``kernel_rmv`` lines, cases ``mesh_slab_*``); then the randomized fit
+   at the tiled phase's seed (the same sketch) and ``lanczos_block(8)``,
+   each EV within 1e-5 of the single-card fit's, launches as predicted
+   from the slab count (randomized: 4 x 9 spmm, 4 x 8 rmv; block
+   Lanczos: 4 x steps rmv, 4 x (steps + 1) spmm), and no launch at a
+   shape that was not held; ms per product; ``auto`` as in case 20.
+24. ``mesh`` ``tsne`` (inside ``tsne``): ``tsne.run(mesh=)`` in knn mode at
+   50,000, 500 epochs: the mesh gradient within 1e-4 of max |g| of a
+   float64 evaluation, bit for bit on repeat, silhouette at least 0.7, ms
+   per epoch beside the single card's.
+
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 float32 multiply-adds (2 x stored slots x kp) over 67 TFLOP/s. The
 densify kernel's ``launches`` are those of the north star's cold fit plus
-the streaming phase's (both streams).
+the streaming phase's (both streams), the mesh Gram fit's and the mesh
+stream's; the tiled kernels' those of the cold tiled fit and the mesh
+tiled fits.
 
 Then, as the last three lines: ``{"kernels": [...]}``, the card's
 ``name, power.limit`` from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -170,6 +213,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import resource
@@ -194,6 +238,9 @@ SCORE_REL_FAIL = 1e-5  # streaming scores vs a float64 recompute, of max |score|
 TSNE_KNN_N, TSNE_EXACT_N, TSNE_EPOCHS = 50_000, 10_000, 500  # results_tsne_tpu.json's knn row
 TSNE_GRAD_FAIL = 1e-4  # the float32 gradient vs a float64 evaluation, of max |g|
 SIL_SAMPLE, SIL_FAIL = 5_000, 0.7  # silhouette sample and bar (the TPU run recorded 0.779)
+MESH_ENTRIES = 4  # the mesh phases' entries, all on the one card
+MESH_SINGLE_FAIL = 1e-6  # mesh Gram / stream EV vs the single-card fit, of the largest EV
+MESH_SCORE_ROWS = 1_000  # the mesh Gram fit's score rows held to the single card's
 KERNEL_REL_FAIL = 1e-5  # spmm / rmv kernel vs plain, relative to max |plain|
 HVG = 2_000  # the pipeline's mask: the top columns of var_col (stands in for HVG selection)
 NORM_TARGET = 1e4  # normalize's target row sum
@@ -230,6 +277,13 @@ def run(cmd) -> str:
 
 def card_line() -> str:
     return run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+
+
+@functools.cache
+def card() -> str:
+    """``card_line()``, read once: printed beside every mesh number."""
+
+    return card_line()
 
 
 def phase_env(torch) -> None:
@@ -682,19 +736,28 @@ def phase_main_path(torch, held_widths) -> tuple:
     phase_breakdown(torch, eng, pca, k)
     phase_idle(torch, eng, builder, m)
 
+    # what the mesh phase holds its Gram fit to: these EVs and score rows
+    single = dict(ev=ev, T_head=T[:MESH_SCORE_ROWS].clone())
+    del T, T2, pca, pca2, eng
+    m._operator_cache.clear()
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
-    ev_true, iters = f64_truth_ev(torch, X, k)
+    # the uncentered truth too, from the same Gram: the mesh phase's
+    # Lanczos fit on these counts is held to it
+    ev_raw, ev_true, iters = f64_truth_ev(torch, X, k, uncentered=True)
     truth_s = time.perf_counter() - t0
     ev_rel_err = float(np.abs(ev - ev_true).max() / ev_true[0])
     emit(
         "ev", ev_rel_err=ev_rel_err, ev_target=EV_TARGET, ev_fail_above=EV_FAIL,
         meets_target=ev_rel_err <= EV_TARGET, truth_s=truth_s,
-        truth_subspace_iters=iters, ev_top3=ev[:3].tolist(),
-        ev_true_top3=ev_true[:3].tolist(),
+        truth_subspace_iters=iters[1], uncentered_truth_subspace_iters=iters[0],
+        ev_top3=ev[:3].tolist(), ev_true_top3=ev_true[:3].tolist(),
     )
     if not ev_rel_err <= EV_FAIL:
         raise AssertionError(f"EV rel err {ev_rel_err} > {EV_FAIL}")
-    return launches, library_densify_ms(torch, X), X, ev_true
+    single.update(ev_raw=ev_raw)
+    return launches, library_densify_ms(torch, X), X, ev_true, single
 
 
 def _ev_rel_err(ev, ev_true) -> float:
@@ -818,6 +881,7 @@ def phase_dense_path(torch) -> None:
         raise AssertionError("the two construction routes disagree on an exact matrix")
     del host, op, m
     torch.cuda.empty_cache()
+    mesh_dense = timed("mesh_dense", phase_mesh_dense, torch, X)
 
     # (b) the randomized method, cold on a fresh matrix, then warm
     m = SparseMatrix.from_scipy(X, device="cuda")
@@ -855,6 +919,13 @@ def phase_dense_path(torch) -> None:
                          truth_fail_above=RANDOMIZED_TRUTH_FAIL),
          ev_top3=np.asarray(pca_a.explained_variance_)[:3].tolist(),
          ev_raw_true_top3=ev_raw[:3].tolist(), ev_centered_true_top3=ev_centered[:3].tolist())
+    mesh_err = _ev_rel_err(mesh_dense.pop("ev"), ev_raw)
+    emit("mesh", case="dense", n=n, p=p, entries=MESH_ENTRIES, engine="ShardedDensified",
+         method="the builder's defaults (Lanczos, tolerance 1e-6)", **mesh_dense,
+         single_card_warm_s=warm_a, single_card_steps=pca_a.lanczos_steps_taken_,
+         ev_rel_err_f64_truth_uncentered=mesh_err, fail_above=EV_FAIL, card=card())
+    if not (mesh_dense["scores_ok"] and mesh_err <= EV_FAIL):
+        raise AssertionError(f"mesh dense Lanczos EV rel err {mesh_err} > {EV_FAIL}")
     if not max(errs.values()) <= EV_FAIL:
         raise AssertionError(f"dense path Lanczos EV rel err {errs} > {EV_FAIL}")
     if not same_err <= TILED_EV_FAIL:
@@ -1126,8 +1197,9 @@ class Csr64Operator:
 
 def phase_tiled_path(torch, kernel_result: dict) -> dict:
     """The tiled engine's path once, through the user-facing entry points;
-    -> the kernels' launch counts in the cold fit. The full-size kernel
-    comparison on the engine's payload adds to ``kernel_result``."""
+    -> the kernels' launch counts in the cold fit, and in the mesh tiled
+    fits on the same matrix. The full-size kernel comparisons on the
+    engine's payload and on a mesh slab's add to ``kernel_result``."""
 
     import numpy as np
 
@@ -1220,13 +1292,17 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     phase_kernel_tiled_path(torch, op, kernel_result)
     for name, ms in library_tiled_ms(torch, X).items():
         kernel_result[name]["library_ms"] = ms
+    del op, src
+    m._operator_cache.clear()  # the single-card engine goes before the mesh builds its own
+    torch.cuda.empty_cache()
+    mesh_launches = timed("mesh_tiled", phase_mesh_tiled, torch, m, ev, lanczos, kernel_result)
 
     # EV bar: the same randomized algorithm, the same sketch, float64 products
     l = k + 10
     omega = gaussian_sketch(p, l, 42, dtype=torch.float32, device=m.device).double()
     col_sums, _ = _host_col_stats(m)
     mu = torch.from_numpy(col_sums / n).to(m.device)
-    del op, m, src  # the engine goes with the matrix's operator cache
+    del m
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ref_op = CenteredOperator(Csr64Operator(torch, X, "cuda"), mu)
@@ -1273,7 +1349,7 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     )
     if not same_err <= TILED_EV_FAIL:
         raise AssertionError(f"tiled EV rel err vs the same-sketch f64 run {same_err} > {TILED_EV_FAIL}")
-    return launches
+    return launches, mesh_launches
 
 
 def phase_tiled_lanczos(torch, m, k: int) -> dict:
@@ -1707,7 +1783,8 @@ def phase_streaming(torch, X, ev_true, held_widths, Xl64) -> int:
     rows (16 slabs, a seeded sample) of the pipeline's log-normalized
     values (the float32 tier: float32 densify, float32 GEMM) against the
     float64 Gram of those rows (1e-5).
-    -> the densify launches of both streams."""
+    -> the densify launches of both streams, and what the mesh stream is
+    held to (the fit's EVs, components and first chunk's scores)."""
 
     import numpy as np
 
@@ -1836,7 +1913,11 @@ def phase_streaming(torch, X, ev_true, held_widths, Xl64) -> int:
         raise AssertionError(f"streaming scores rel err {score_err} > {SCORE_REL_FAIL}")
     if not ev32_err <= EV_FAIL:
         raise AssertionError(f"float32-tier streaming EV rel err {ev32_err} > {EV_FAIL}")
-    return launches + f32_launches
+    # what the mesh stream is held to
+    single = dict(ev=np.asarray(pca.explained_variance_, np.float64),
+                  V=pca.components_.float().cpu(), T0=scores[0], fit_s=fit_s,
+                  transform_s=transform_s, idle=idle)
+    return launches + f32_launches, single
 
 
 def make_blobs(n, d=50, nc=10, seed=0):
@@ -1944,6 +2025,9 @@ def phase_tsne(torch) -> None:
             failed.append(mode)
         del Y, xt
         torch.cuda.empty_cache()
+        if mode == "knn":
+            timed("mesh_tsne", phase_mesh_tsne, torch, x, labels, cfg,
+                  (total_s - setup_s) / cfg.epochs * 1e3)
     if failed:
         raise AssertionError(f"t-SNE {failed}: a bar of the tsne phase was not met")
 
@@ -2147,6 +2231,416 @@ def phase_masked_tiled(torch, m, X) -> None:
     m._transpose_cache = None  # the column layout: not needed past this phase
 
 
+# --------------------------------------------------------------------------
+# the mesh layer: four mesh entries on the one card
+# --------------------------------------------------------------------------
+
+
+def card_mesh(torch):
+    """``MESH_ENTRIES`` entries, each naming card 0."""
+
+    from single_algebra_tpu_torch.parallel import Mesh
+
+    return Mesh((torch.device("cuda", 0),) * MESH_ENTRIES)
+
+
+def _synced(torch, fn):
+    """``fn()`` and its seconds on the host clock, the card synchronized."""
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check_auto(torch, m, mesh, cell: str) -> None:
+    """``choose_sharded_engine`` on a mesh of entries sharing one card: the
+    engine it chooses must fit ONE card's budget (the dense form of both
+    cells does not)."""
+
+    from single_algebra_tpu_torch.linalg.operators import DensifiedOperator
+    from single_algebra_tpu_torch.parallel import ShardedTiled, choose_sharded_engine
+
+    n, p = m.shape
+    (chosen, choose_s) = _synced(torch, lambda: choose_sharded_engine(m, mesh))
+    budget = DensifiedOperator.hbm_budget_bytes(mesh.home)
+    need = {"dense": 2 * n * p * (1 if m.values_bf16_exact() else 2),
+            "tiled": ShardedTiled.payload_bytes(m, mesh.size)}.get(chosen, 0)
+    emit("mesh", case="auto", cell=cell, n=n, p=p, chosen=chosen, payload_bytes=need,
+         one_card_budget_bytes=budget, dense_bf16_bytes=2 * n * p, choose_s=choose_s,
+         card=card())
+    if need > budget:
+        raise AssertionError(f"mesh auto on {cell} chose {chosen!r} ({need} bytes) past one "
+                             f"card's budget {budget}")
+
+
+def phase_mesh_cell1(torch, X, single: dict, ev_true, held_widths) -> int:
+    """Cell 12 on cell 1's counts: ``sharded_gram_pca`` cold and warm
+    (EV vs the float64 truth, 1e-5, and vs the single-card Gram fit, 1e-6
+    of the largest; the first 1,000 score rows vs the single card's, 1e-5
+    of max |score|; densify launches = 2 x the sub-slabs at held widths),
+    then the gather engine's ``lanczos_block(8)`` (EV vs the float64
+    uncentered truth, 1e-5), then ``auto``. -> the densify launches of the
+    cold Gram fit."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.ops import cuda_lib
+    from single_algebra_tpu_torch.parallel import (
+        ShardedSpMM, sharded_gram_pca, sharded_pca_fit_transform,
+    )
+    from single_algebra_tpu_torch.parallel.sharded import _psum
+    from single_algebra_tpu_torch.types import SVDMethod
+
+    mesh = card_mesh(torch)
+    emit("mesh", case="setup", entries=mesh.size, distinct_devices=len(mesh.distinct),
+         devices=[str(d) for d in mesh.devices], card=card(),
+         note="every entry names the one card: each slab's kernels and every reduction "
+              "run on it, and no transfer between cards is measured")
+    n, p = X.shape
+    m = SparseMatrix.from_scipy(X, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launch_counts()
+    res, cold_s = _synced(torch, lambda: sharded_gram_pca(m, mesh, n_components=K))
+    launches = cuda_lib.launch_counts["tiled_ell_densify_t"]
+    by_dtype = dict(cuda_lib.densify_launches_by_dtype)
+    peak = torch.cuda.max_memory_allocated()
+    op = m._operator_cache[("sharded", "gram", mesh)]
+    res2, warm_s = _synced(torch, lambda: sharded_gram_pca(m, mesh, n_components=K))
+    sub = sum(rc // slab for _, rc, slab in op.bwidths)  # sub-slabs per entry
+    widths = sorted({c for c, _, _ in op.bwidths})
+    local_ms = _time_ms(torch, lambda: op._local_gram(0), 1)
+    G = op.gram_cached()
+    psum_ms = _time_ms(torch, lambda: _psum([G] * mesh.size, mesh.home), 3)
+    ev = res.explained_variance.double().cpu().numpy()
+    err_truth, err_single = _ev_rel_err(ev, ev_true), _ev_rel_err(ev, single["ev"])
+    T = res.transformed[:MESH_SCORE_ROWS].double()
+    Ts = single["T_head"].double()
+    score_err = float((T - Ts).abs().max() / Ts.abs().max())
+    warm_same = bool(torch.equal(res.transformed, res2.transformed))
+    finite = bool(torch.isfinite(res.transformed).all())
+    emit("mesh", case="gram", n=n, p=p, k=K, entries=mesh.size, engine="ShardedGram",
+         col_tile=op.meta[1], gram_tier="int8" if op.meta[3] else (
+             "bf16" if op.meta[2] else "f32"),
+         buckets=[list(b) for b in op.bwidths], cold_s=cold_s, warm_s=warm_s,
+         warm_equals_cold=warm_same, per_slab_gram_ms=local_ms, psum_ms=psum_ms,
+         peak_alloc_gb=peak / 1e9, densify_launches=launches, densify_launches_by_dtype=by_dtype,
+         densify_launches_want=2 * mesh.size * sub, widths=widths, held_widths=held_widths,
+         ev_rel_err_f64_truth=err_truth, ev_fail_above=EV_FAIL, ev_target=EV_TARGET,
+         ev_rel_err_single_card=err_single, single_fail_above=MESH_SINGLE_FAIL,
+         score_rel_err_single_card=score_err, score_rows=MESH_SCORE_ROWS,
+         score_fail_above=SCORE_REL_FAIL, card=card())
+    del res, res2, G, T, op
+    m._operator_cache.clear()
+    torch.cuda.empty_cache()
+    if launches != 2 * mesh.size * sub or not set(widths) <= set(held_widths):
+        raise AssertionError(f"mesh Gram densify launches {launches} (want {2 * mesh.size * sub})"
+                             f" at widths {widths}: the kernel phase held {held_widths}")
+    if not (finite and err_truth <= EV_FAIL and err_single <= MESH_SINGLE_FAIL
+            and score_err <= SCORE_REL_FAIL):
+        raise AssertionError(f"mesh Gram fit: EV {err_truth} vs truth, {err_single} vs the "
+                             f"single card, scores {score_err}, finite {finite}")
+
+    # the gather engine, block Lanczos, against the uncentered truth
+    spop, build_s = _synced(torch, lambda: ShardedSpMM.from_matrix(m, mesh))
+    m._operator_cache[("sharded", "sparse", mesh)] = spop
+    cuda_lib.reset_launch_counts()
+    res, fit_s = _synced(torch, lambda: sharded_pca_fit_transform(
+        m, K, mesh=mesh, svd_method=SVDMethod.lanczos(), engine="sparse", lanczos_block=8))
+    err = _ev_rel_err(res.explained_variance.double().cpu().numpy(), single["ev_raw"])
+    finite = bool(torch.isfinite(res.transformed).all()) and tuple(res.transformed.shape) == (n, K)
+    emit("mesh", case="sparse", n=n, p=p, engine="ShardedSpMM", method="lanczos_block(8)",
+         build_s=build_s, fit_transform_s=fit_s, row_ell_width=spop.slabs[0].row_data.shape[1],
+         col_ell_width=spop.slabs[0].col_data.shape[1],
+         kernel_launches=dict(cuda_lib.launch_counts),
+         ev_rel_err_f64_truth_uncentered=err, fail_above=EV_FAIL, card=card())
+    del res, spop
+    m._operator_cache.clear()
+    torch.cuda.empty_cache()
+    if not (finite and err <= EV_FAIL):
+        raise AssertionError(f"mesh gather engine EV rel err {err} > {EV_FAIL} (finite {finite})")
+    _check_auto(torch, m, mesh, "1")
+    return launches
+
+
+def phase_mesh_streaming(torch, X, single: dict, held_widths) -> int:
+    """Cell 12's stream: ``StreamingSparsePCA(mesh=)`` over cell 10's
+    chunks, fit and transform: EV within 1e-6 (of the largest) of the
+    single-card stream, the first chunk's scores within 1e-5 of max
+    |score|, densify launches = slabs (bf16) + slabs (float32) at held
+    widths; the idle share of one ``partial_fit``. -> its densify
+    launches."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.models import StreamingSparsePCA
+    from single_algebra_tpu_torch.models import streaming_pca as smod
+    from single_algebra_tpu_torch.ops import cuda_lib
+
+    mesh = card_mesh(torch)
+    n, p = X.shape
+    chunks = [X[r0:r0 + STREAM_CHUNK] for r0 in range(0, n, STREAM_CHUNK)]
+    slabs = sum(-(-c.shape[0] // smod._SLAB) for c in chunks)
+    widths: dict = {}
+    payload = smod._slab_payload
+
+    def recording(*args, **kwargs):
+        out = payload(*args, **kwargs)
+        widths[out[2]] = widths.get(out[2], 0) + 1
+        return out
+
+    smod._slab_payload = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        pca = StreamingSparsePCA(n_components=K, n_features=p, mesh=mesh)
+        for c in chunks:
+            pca.partial_fit(c)
+        pca.finalize()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = dict(cuda_lib.densify_launches_by_dtype)
+        t0 = time.perf_counter()
+        scores = [pca.transform(c) for c in chunks]
+        torch.cuda.synchronize()
+        transform_s = time.perf_counter() - t0
+        launches = cuda_lib.launch_counts["tiled_ell_densify_t"]
+        by_dtype = dict(cuda_lib.densify_launches_by_dtype)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        smod._slab_payload = payload
+    ev = np.asarray(pca.explained_variance_, np.float64)
+    ev_err = _ev_rel_err(ev, single["ev"])
+    signs = np.sign((pca.components_.float().cpu() * single["V"]).sum(dim=1).numpy())
+    score_err = float(np.abs(scores[0] * signs[None, :] - single["T0"]).max()
+                      / np.abs(single["T0"]).max())
+    rows_ok = sum(len(t) for t in scores) == n and all(np.isfinite(t).all() for t in scores)
+    del pca, scores
+    torch.cuda.empty_cache()
+    spare = StreamingSparsePCA(n_components=K, n_features=p, mesh=mesh)
+    idle = device_idle(torch, lambda: spare.partial_fit(chunks[0]))
+    del spare
+    torch.cuda.empty_cache()
+    emit("mesh", case="streaming", n=n, p=p, chunk_rows=STREAM_CHUNK, slabs=slabs,
+         entries=mesh.size, fit_s=fit_s, transform_s=transform_s,
+         single_card_fit_s=single["fit_s"], single_card_transform_s=single["transform_s"],
+         partial_fit_idle=idle, single_card_partial_fit_idle=single["idle"],
+         peak_alloc_gb=peak / 1e9, densify_launches=launches, densify_launches_fit=fit_launches,
+         densify_launches_by_dtype=by_dtype, slab_widths=dict(sorted(widths.items())),
+         held_widths=held_widths, ev_rel_err_single_card=ev_err,
+         ev_fail_above=MESH_SINGLE_FAIL, score_rel_err_single_card=score_err,
+         score_fail_above=SCORE_REL_FAIL, card=card())
+    want = {"bfloat16": slabs, "float32": slabs}
+    if fit_launches != {"bfloat16": slabs} or by_dtype != want:
+        raise AssertionError(f"mesh stream densify launches {by_dtype} (fit {fit_launches}): "
+                             f"want {want}")
+    unheld = set(widths) - set(held_widths)
+    if unheld:
+        raise AssertionError(f"mesh stream slab widths {sorted(unheld)}: the kernel phase "
+                             f"held {held_widths} only")
+    if not (rows_ok and ev_err <= MESH_SINGLE_FAIL and score_err <= SCORE_REL_FAIL):
+        raise AssertionError(f"mesh stream: EV {ev_err} vs the single card, scores "
+                             f"{score_err}, rows whole and finite {rows_ok}")
+    return launches
+
+
+def phase_mesh_dense(torch, X) -> dict:
+    """Cell 12 on cell 3's matrix: ``sharded_pca_fit_transform`` with the
+    builder's defaults (Lanczos, tolerance 1e-6) on ``ShardedDensified``,
+    cold and warm; its steps counted as the warm fit's ``rmv_precise``
+    calls. -> the EVs and times (the caller holds them to its float64
+    uncentered truth)."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.parallel import sharded_pca_fit_transform
+    from single_algebra_tpu_torch.types import SVDMethod
+
+    mesh = card_mesh(torch)
+    m = SparseMatrix.from_scipy(X, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    def fit():
+        return sharded_pca_fit_transform(m, K, mesh=mesh, svd_method=SVDMethod.lanczos(),
+                                          engine="dense")
+
+    res, cold_s = _synced(torch, fit)
+    peak = torch.cuda.max_memory_allocated()
+    op = m._operator_cache[("sharded", "dense", mesh)]
+    calls = [0]
+    rmv_precise = op.rmv_precise
+
+    def counting(C):
+        calls[0] += 1
+        return rmv_precise(C)
+
+    op.rmv_precise = counting
+    res2, warm_s = _synced(torch, fit)
+    del op.rmv_precise  # the counter refers to the operator: no cycle outlives the phase
+    ok = (tuple(res.transformed.shape) == (m.shape[0], K)
+          and bool(torch.isfinite(res.transformed).all()))
+    out = dict(ev=res2.explained_variance.double().cpu().numpy(), cold_s=cold_s, warm_s=warm_s,
+               steps=calls[0], peak_alloc_gb=peak / 1e9, lo_present=op.slabs[0].lo is not None,
+               scores_ok=ok)
+    del res, res2, op
+    m._operator_cache.clear()
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh_tiled(torch, m, ev_single, lanczos_single: dict, kernel_result: dict) -> dict:
+    """Cell 12 on cell 2's matrix: ``ShardedTiled`` built, both kernels
+    held against their plain versions on slab 0's payload at the path's
+    operand shapes, then the randomized fit at the tiled phase's seed (the
+    single-card fit's sketch) and ``lanczos_block(8)``, each EV within
+    1e-5 of the single-card fit's; launches as predicted from the slab
+    count, and none at a shape that was not held; ms per product; then
+    ``auto``. -> the kernels' launches in these fits."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.linalg import operators as ops
+    from single_algebra_tpu_torch.ops import cuda_lib
+    from single_algebra_tpu_torch.parallel import ShardedTiled, sharded_pca_fit_transform
+    from single_algebra_tpu_torch.types import PowerIterationNormalizer, SVDMethod
+
+    mesh = card_mesh(torch)
+    n, p = m.shape
+    op, build_s = _synced(torch, lambda: ShardedTiled.from_matrix(m, mesh))
+    m._operator_cache[("sharded", "tiled", mesh)] = op
+    wt, nt, ct = op.meta[:3]
+    slab = op.slabs[0]
+    gen = torch.Generator(device=mesh.home)
+    gen.manual_seed(14)
+    held = set()
+    for case, odt, kp, rmv in (("mesh_slab_bf16_x_bf16", torch.bfloat16, 64, True),
+                               ("mesh_slab_bf16_x_f32", torch.float32, 64, True),
+                               ("mesh_slab_bf16_x_f32_kp56", torch.float32, 56, False),
+                               ("mesh_slab_bf16_x_f32_kp8", torch.float32, 8, True)):
+        _compare_tiled(torch, kernel_result, gen, case, slab.tdata, slab.tlocal, wt=wt,
+                       ntiles=nt, ct=ct, kp=kp, odt=odt, rmv=rmv)
+        for name in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")[:2 if rmv else 1]:
+            held.add((name, slab.tdata.shape[1], kp, slab.tdata.dtype, odt))
+    if slab.tdata_lo is not None:
+        raise AssertionError("cell 2's counts are bf16-exact: a lo payload was not expected")
+
+    seen = set()
+    originals = {name: getattr(ops, name) for name in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")}
+
+    def spy(name, fn):
+        def call(tdata, tlocal, operand, **kw):
+            seen.add((name, tdata.shape[1], operand.shape[0], tdata.dtype, operand.dtype))
+            return fn(tdata, tlocal, operand, **kw)
+        return call
+
+    runs = {}
+    for name, fn in originals.items():
+        setattr(ops, name, spy(name, fn))
+    try:
+        for run_name, kw in (
+            ("randomized", dict(svd_method=SVDMethod.random(10, 7, PowerIterationNormalizer.QR))),
+            ("randomized_warm",
+             dict(svd_method=SVDMethod.random(10, 7, PowerIterationNormalizer.QR))),
+            ("lanczos_block_8", dict(svd_method=SVDMethod.lanczos(), lanczos_block=8)),
+        ):
+            cuda_lib.reset_launch_counts()
+            res, seconds = _synced(torch, lambda: sharded_pca_fit_transform(
+                m, K, mesh=mesh, engine="tiled", **kw))
+            runs[run_name] = dict(
+                seconds=seconds, ev=res.explained_variance.double().cpu().numpy(),
+                launches={k: cuda_lib.launch_counts[k]
+                          for k in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")},
+                ok=tuple(res.transformed.shape) == (n, K)
+                and bool(torch.isfinite(res.transformed).all()))
+            del res
+    finally:
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+
+    B = torch.randn((p, K + 10), generator=gen, device=mesh.home)
+    C = torch.randn((n, K + 10), generator=gen, device=mesh.home)
+    product_ms = {name: _time_ms(torch, lambda f=getattr(op, name), a=arg: f(a), 3)
+                  for name, arg in (("mv_fast", B), ("rmv_fast", C), ("mv", B), ("rmv", C))}
+    del B, C
+    ndev = mesh.size
+    rand, block = runs["randomized"], runs["lanczos_block_8"]
+    block_steps = block["launches"]["tiled_ell_rmv_t"] // ndev
+    predicted = dict(randomized={"tiled_ell_spmm_t": ndev * 9, "tiled_ell_rmv_t": ndev * 8},
+                     lanczos_block_8={"tiled_ell_spmm_t": ndev * (block_steps + 1),
+                                      "tiled_ell_rmv_t": ndev * block_steps})
+    errs = dict(randomized=_ev_rel_err(rand["ev"], ev_single),
+                randomized_warm=_ev_rel_err(runs["randomized_warm"]["ev"], ev_single),
+                lanczos_block_8=_ev_rel_err(block["ev"], lanczos_single["lanczos_block_8"]["ev"]))
+    unheld = sorted(str(s_) for s_ in seen - held)
+    emit("mesh", case="tiled", n=n, p=p, entries=ndev, engine="ShardedTiled", wt=wt, ntiles=nt,
+         col_tile=ct, rows_per_slab=op.rows_natural, payload_rows_per_slab=op.rows_per_shard,
+         ovw=op.meta[4], ovtw=op.meta[5], build_s=build_s,
+         fit_transform_s={k: v["seconds"] for k, v in runs.items()},
+         single_card_lanczos_block_8_s=lanczos_single["lanczos_block_8"]["seconds"],
+         launches={k: v["launches"] for k, v in runs.items()}, launches_predicted=predicted,
+         block_steps=block_steps,
+         single_card_block_steps=lanczos_single["lanczos_block_8"]["steps"],
+         product_ms_kp64=product_ms, shapes_launched=sorted(str(s_) for s_ in seen),
+         shapes_not_held=unheld, ev_rel_err_single_card=errs, ev_fail_above=EV_FAIL,
+         card=card())
+    del op, slab
+    m._operator_cache.clear()
+    torch.cuda.empty_cache()
+    if unheld:
+        raise AssertionError(f"mesh tiled kernels launched at shapes not held: {unheld}")
+    for run_name, want in predicted.items():
+        if runs[run_name]["launches"] != want:
+            raise AssertionError(f"mesh tiled {run_name} launches {runs[run_name]['launches']},"
+                                 f" predicted {want}")
+    if not all(r["ok"] for r in runs.values()) or not max(errs.values()) <= EV_FAIL:
+        raise AssertionError(f"mesh tiled fits: EV vs the single card {errs}")
+    _check_auto(torch, m, mesh, "2")
+    return {k: rand["launches"][k] + block["launches"][k] for k in rand["launches"]}
+
+
+def phase_mesh_tsne(torch, x, labels, cfg, single_epoch_ms: float) -> None:
+    """Cell 12's t-SNE: ``tsne.run(mesh=)`` (knn mode) on the knn phase's
+    blobs: the mesh gradient at a seeded y within 1e-4 of max |g| of a
+    float64 evaluation and bit for bit on repeat, finite output, a
+    silhouette of at least 0.7; ms per epoch beside the single card's."""
+
+    from single_algebra_tpu_torch.models import tsne
+
+    mesh = card_mesh(torch)
+    dev = mesh.home
+    n = x.shape[0]
+    xt = torch.from_numpy(x).to(dev)
+    (src, dst, val), edges_s = _synced(torch, lambda: tsne._knn_edges(xt, cfg))
+    lay, layout_s = _synced(torch, lambda: tsne._KnnMesh.build(src, dst, val, n, mesh, cfg,
+                                                               xt.dtype))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    y = 10.0 * torch.randn((n, cfg.output_dim), generator=gen, device=dev)
+    g1, g2 = tsne._knn_grad_mesh(lay, y, 12.0), tsne._knn_grad_mesh(lay, y, 12.0)
+    g64 = tsne._knn_grad_mesh(lay, y.double(), 12.0)
+    grad_err = float((g1.double() - g64).abs().max() / g64.abs().max())
+    identical = bool(torch.equal(g1, g2))
+    grad_ms = _time_ms(torch, lambda: tsne._knn_grad_mesh(lay, y, 12.0), 5)
+    del g1, g2, g64, lay
+    Y, total_s = _synced(torch, lambda: tsne.run(x, cfg, mesh=mesh))
+    finite = bool(torch.isfinite(Y).all())
+    sil = silhouette_on_card(torch, Y, labels, SIL_SAMPLE) if finite else float("nan")
+    setup_s = edges_s + layout_s
+    emit("mesh", case="tsne", mode="knn", n=n, entries=mesh.size, epochs=cfg.epochs,
+         total_s=total_s, setup_s=setup_s, epoch_ms=(total_s - setup_s) / cfg.epochs * 1e3,
+         single_card_epoch_ms=single_epoch_ms, grad_ms=grad_ms, grad_rel_err_f64=grad_err,
+         grad_fail_above=TSNE_GRAD_FAIL, grad_bit_identical=identical, finite=finite,
+         silhouette=sil, silhouette_fail_below=SIL_FAIL, card=card())
+    if not (grad_err <= TSNE_GRAD_FAIL and identical and finite and sil >= SIL_FAIL):
+        raise AssertionError("mesh t-SNE: a bar was not met")
+
+
 def main() -> int:
     import torch
 
@@ -2180,11 +2674,18 @@ def _phases(torch) -> int:
     kern = timed("kernel", phase_kernel, torch)
     timed("gram_tiers", phase_gram_tiers, torch)
     held = kern.pop("slab_widths")
-    launches, kern["library_ms"], X, ev_true = timed("main_path", phase_main_path, torch, held)
+    launches, kern["library_ms"], X, ev_true, single = timed("main_path", phase_main_path,
+                                                            torch, held)
+    torch.cuda.empty_cache()
+    launches += timed("mesh_cell1", phase_mesh_cell1, torch, X, single, ev_true, held)
+    del single
     torch.cuda.empty_cache()
     ctx = timed("pipeline", phase_pipeline, torch, timed("stats", phase_stats, torch, X))
-    launches += timed("streaming", phase_streaming, torch, X, ev_true, held, ctx["Xl64"])
-    del X
+    stream_launches, single = timed("streaming", phase_streaming, torch, X, ev_true, held,
+                                    ctx["Xl64"])
+    launches += stream_launches
+    launches += timed("mesh_streaming", phase_mesh_streaming, torch, X, single, held)
+    del X, single
     torch.cuda.empty_cache()
     timed("sparse_engine", phase_sparse_engine, torch, ctx)
     timed("similarity", phase_similarity, torch, ctx.pop("T"))
@@ -2194,7 +2695,8 @@ def _phases(torch) -> int:
     torch.cuda.empty_cache()
     tiled_kern = {}
     timed("kernel_tiled", phase_kernel_tiled, torch, tiled_kern)
-    tiled_launches = timed("tiled_path", phase_tiled_path, torch, tiled_kern)
+    tiled_launches, mesh_launches = timed("tiled_path", phase_tiled_path, torch, tiled_kern)
+    tiled_launches = {name: tiled_launches[name] + mesh_launches[name] for name in tiled_launches}
     torch.cuda.empty_cache()
     timed("tsne", phase_tsne, torch)
     emit("seconds", of="smoke", s=time.perf_counter() - t0)

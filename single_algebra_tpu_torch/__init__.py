@@ -18,10 +18,12 @@ Gram contraction, p-space solve, projection), the tiled engine
 (``TiledSparseOperator``: ``tiled_ell_spmm_t`` / ``tiled_ell_rmv_t``
 kernels) and the gather engine (``SparseOperator``), with the randomized,
 Lanczos (the builders' default) and block-Lanczos solvers; the
-``similarity`` measures; t-SNE (``models.tsne``, exact and knn modes) and
-single-device ``StreamingSparsePCA``. Every public fit, transform and
-product runs under :func:`precision_policy` (full float32, the caller's
-flags restored after).
+``similarity`` measures; t-SNE (``models.tsne``, exact and knn modes),
+``StreamingSparsePCA``, and the mesh layer ``parallel`` (row-sharded
+engines, sharded PCA and Gram PCA over a one-process ``Mesh`` of devices,
+and the ``mesh=`` branches of t-SNE and streaming PCA). Every public fit,
+transform and product runs under :func:`precision_policy` (full float32,
+the caller's flags restored after).
 """
 
 from .types import (  # noqa: F401

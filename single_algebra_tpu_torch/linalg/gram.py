@@ -41,6 +41,7 @@ from .svd import randomized_svd, svd_flip
 __all__ = [
     "GramPCAEngine",
     "gram_matrix",
+    "gram_pass",
     "gram_pca_graph",
     "topk_psd_eigh",
     "solve_gram_topk",
@@ -489,18 +490,30 @@ def gram_matrix(
 
     exact, i8_vals = eng.meta[3], eng.meta[4]
     slab = _slab_for(eng.shape[0])
-    i8 = exact and i8_vals and slab * 127 ** 2 < 2 ** 31
-    pp = eng.p_padded
-    dev = eng.device
-    bf16_native = exact and not i8 and dev.type == "cuda" and _bf16_mm_f32()
 
-    def slab_dense(b, i):
-        if i8:
-            return eng._densify(b, i, torch.int8)
-        if exact:
-            D = eng._densify(b, i, torch.bfloat16)
-            return D if bf16_native else D.float()
-        return eng._densify(b, i, torch.float32)
+    def slabs(dtype):
+        for b, (_, rc) in enumerate(eng.bwidths):
+            for i in range(rc // slab):
+                yield eng._densify(b, i, dtype)
+
+    return gram_pass(slabs, eng.p_padded, eng.device, exact=exact,
+                     i8=exact and i8_vals and slab * 127 ** 2 < 2 ** 31, sym=sym, rb=rb)
+
+
+def gram_pass(slabs, pp: int, dev, *, exact: bool, i8: bool, sym: bool = True,
+              rb: int | None = None) -> torch.Tensor:
+    """``sum_s D_s D_s^T`` as ``[pp, pp]`` float32 over the slabs that
+    ``slabs(dtype)`` yields in order (each densified to ``dtype``, ``[pp,
+    rows]``, on ``dev``), in :func:`gram_matrix`'s tiers (``i8``: int8
+    slabs; ``exact``: bf16 slabs; else float32) and with its symmetric-half
+    blocks. The sharded Gram engine runs it per device."""
+
+    bf16_native = exact and not i8 and torch.device(dev).type == "cuda" and _bf16_mm_f32()
+    dtype = torch.int8 if i8 else (torch.bfloat16 if exact else torch.float32)
+
+    def dense_slabs():
+        for D in slabs(dtype):
+            yield D.float() if exact and not i8 and not bf16_native else D
 
     def acc_dot(G_blk, a, c):
         """``G_blk += a @ c^T`` in the tier's arithmetic."""
@@ -518,26 +531,22 @@ def gram_matrix(
         rb = None
     if rb is None:
         G = torch.zeros((pp, pp), dtype=torch.float32, device=dev)
-        for b, (_, rc) in enumerate(eng.bwidths):
-            for i in range(rc // slab):
-                D = slab_dense(b, i)
-                acc_dot(G, D, D)
+        for D in dense_slabs():
+            acc_dot(G, D, D)
         return G
 
     ppb = -(-pp // rb) * rb
     nb = ppb // rb
     G = torch.zeros((ppb, ppb), dtype=torch.float32, device=dev)
-    for b, (_, rc) in enumerate(eng.bwidths):
-        for i in range(rc // slab):
-            D = slab_dense(b, i)
-            if ppb != pp:
-                D = torch.nn.functional.pad(D, (0, 0, 0, ppb - pp))
-            for r in range(nb):
-                for c in range(r + 1):
-                    acc_dot(
-                        G[r * rb:(r + 1) * rb, c * rb:(c + 1) * rb],
-                        D[r * rb:(r + 1) * rb], D[c * rb:(c + 1) * rb],
-                    )
+    for D in dense_slabs():
+        if ppb != pp:
+            D = torch.nn.functional.pad(D, (0, 0, 0, ppb - pp))
+        for r in range(nb):
+            for c in range(r + 1):
+                acc_dot(
+                    G[r * rb:(r + 1) * rb, c * rb:(c + 1) * rb],
+                    D[r * rb:(r + 1) * rb], D[c * rb:(c + 1) * rb],
+                )
     for r in range(nb):
         for c in range(r):
             G[c * rb:(c + 1) * rb, r * rb:(r + 1) * rb] = (

@@ -21,8 +21,17 @@ centered) Gram through ``solve_gram_topk``, the Gram engine's solve;
 
 The densify kernel takes float32 payloads and int32 ids only, so the
 narrow wire format is widened on the card after the upload, never on the
-host. The ``mesh=`` branches of the JAX class wait for the port's
-``parallel/`` layer (ROADMAP Queue 1 item 4).
+host.
+
+With ``mesh=`` (a ``parallel.Mesh``) each step takes a super-slab of up
+to ``ndev`` consecutive slabs, one per mesh entry, padded to the group's
+widest ``wt`` (:meth:`StreamingSparsePCA._iter_super_slabs`): every entry
+densifies its own slab and forms its partial Gram and moments on its
+device, and the partial Grams are added on the home device in slab order
+(:func:`_accum_graph_mesh`), where ``G`` lives; ``transform`` projects
+each slab on its device and gathers the rows there
+(:func:`_project_graph_mesh`). Entries past the chunk's last slab get no
+work, and only real slabs count towards ``fold_every``.
 """
 
 from __future__ import annotations
@@ -190,6 +199,44 @@ def _project_slab(td, tl, Vp, corr, *, wt, ntiles, ct, exact):
     return D.T @ Vp - corr[None, :]
 
 
+def _accum_graph_mesh(G, tds, tls, mesh, *, wt, ntiles, ct, exact):
+    """One super-slab step over a mesh: slab ``d`` (``tds[d]``/``tls[d]``,
+    on ``mesh.devices[d]``) densified and contracted on its device, the
+    partial Grams and moment vectors added on the home device in slab
+    order, then added into ``G`` there. -> the super-slab's moments."""
+
+    from ..parallel.sharded import _psum
+
+    home = mesh.home
+    moments = []
+
+    def partial_grams():
+        for td, tl in zip(tds, tls):
+            Gp = torch.zeros_like(G, device=td.device)
+            moments.append(_accum_slab(Gp, td, tl, wt=wt, ntiles=ntiles, ct=ct, exact=exact))
+            yield Gp
+            del Gp  # before the next slab's is made
+
+    G += _psum(partial_grams(), home)
+    return _psum((s for s, _ in moments), home), _psum((sq for _, sq in moments), home)
+
+
+def _project_graph_mesh(tds, tls, Vp, corr, mesh, *, wt, ntiles, ct, exact):
+    """Super-slab projection over a mesh -> ``[len(tds) * 8192, k]`` on the
+    home device (``Vp``/``corr`` there, copied once to each distinct
+    device)."""
+
+    from ..parallel.sharded import _replicas
+
+    vreps, creps = _replicas(Vp, mesh), _replicas(corr, mesh)
+    home = mesh.home
+    return torch.cat([
+        _project_slab(td, tl, vreps[td.device], creps[td.device], wt=wt, ntiles=ntiles, ct=ct,
+                      exact=exact).to(home)
+        for td, tl in zip(tds, tls)
+    ])
+
+
 class StreamingSparsePCA:
     """Exact out-of-core PCA over row-slab streams of a CSR matrix.
 
@@ -206,8 +253,10 @@ class StreamingSparsePCA:
     on ``device``, ``explained_variance_`` (k, host float32) and
     ``total_variance_``. ``center=True`` gives true PCA; ``center=False``
     the truncated SVD of raw X. ``device`` is the card unless the caller
-    names another. ``mesh`` raises ``NotImplementedError`` until the port
-    has ``parallel/``; ``axis_name`` is kept for the JAX signature.
+    names another. ``mesh`` (a ``parallel.Mesh``) spreads each step's
+    slabs over the mesh's entries, one slab each (see the module docs);
+    the Gram, the model and the scores then live on its home device
+    (``device`` is ignored), and ``axis_name`` names its axis.
     """
 
     def __init__(
@@ -223,11 +272,6 @@ class StreamingSparsePCA:
         payload_cache: dict | None = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamingSparsePCA(mesh=...) waits for the port's parallel/ "
-                "layer (ROADMAP Queue 1 item 4)"
-            )
         if n_features is None:
             raise ValueError("n_features (matrix width) is required")
         if n_features > 40960:
@@ -243,7 +287,9 @@ class StreamingSparsePCA:
         self.center = center
         self.random_seed = random_seed
         self.ct = col_tile
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.device = mesh.home if mesh is not None else torch.device(device)
         self.ntiles = max(-(-n_features // col_tile), 1)
         pp = self.ntiles * col_tile
         self._G = torch.zeros((pp, pp), dtype=torch.float32, device=self.device)
@@ -351,15 +397,65 @@ class StreamingSparsePCA:
             )
             yield td, tl, wt, nt, n_rows, exact
 
-    def _accum_entry(self, td_dev, tl_dev, wt, nt, n_rows, exact):
-        """Accumulate one device-resident slab payload into G / moments."""
+    def _iter_super_slabs(self, chunk):
+        """Mesh mode: yield ``(tds, tls, wt, ntiles, n_rows, exact,
+        n_real)`` per group of up to ``ndev`` consecutive slabs: each
+        slab's wire payload padded to the group's widest ``wt`` (the JAX
+        package's uniform super-slab; padding slots are zeros), the
+        exactness decided for the whole group first, ``n_real`` the
+        group's slabs (run on the :func:`_prefetch` worker)."""
 
-        s, sq = _accum_slab(
-            self._G, td_dev, tl_dev, wt=wt, ntiles=nt, ct=self.ct, exact=exact,
-        )
+        ndev = self.mesh.shape[self.axis_name]
+        slabs = list(self._iter_slabs(chunk))
+        for g0 in range(0, len(slabs), ndev):
+            group = slabs[g0:g0 + ndev]
+            exact = all(_bf16_exact(data) for _, _, data, _ in group)
+            parts = [_slab_payload(ip, ix, data, nr, self.n_features, self.ct, exact=exact)
+                     for ip, ix, data, nr in group]
+            wt = max(8, *(w for _, _, w, _ in parts))
+            nt = parts[0][3]
+            tds, tls = [], []
+            for td, tl, w, _ in parts:
+                pad = ((0, 0), (0, wt - w), (0, 0))
+                tds.append(np.pad(td.reshape(nt, w, _SLAB), pad).reshape(nt * wt, _SLAB))
+                tls.append(np.pad(tl.reshape(nt, w, _SLAB), pad).reshape(nt * wt, _SLAB))
+            yield tds, tls, wt, nt, sum(g[3] for g in group), exact, len(group)
+
+    def _uploaded(self, chunk):
+        """The chunk's slab payloads, built on the :func:`_prefetch` worker
+        and uploaded: ``(td, tl, wt, nt, n_rows, exact)`` per slab, or in
+        mesh mode ``(tds, tls, wt, nt, n_rows, exact, n_real)`` per
+        super-slab, slab d on mesh entry d."""
+
+        def put(td, tl, exact, dev):
+            return (torch.from_numpy(td.view(np.int16) if exact else td).to(dev),
+                    torch.from_numpy(tl).to(dev))
+
+        if self.mesh is None:
+            for td, tl, wt, nt, n_rows, exact in _prefetch(self._built(chunk)):
+                yield (*put(td, tl, exact, self.device), wt, nt, n_rows, exact)
+            return
+        for tds, tls, wt, nt, n_rows, exact, n_real in _prefetch(self._iter_super_slabs(chunk)):
+            wire = [put(td, tl, exact, dev) for td, tl, dev in zip(tds, tls, self.mesh.devices)]
+            yield (tuple(w[0] for w in wire), tuple(w[1] for w in wire), wt, nt, n_rows, exact,
+                   n_real)
+
+    def _accum_entry(self, td_dev, tl_dev, wt, nt, n_rows, exact, n_real=1):
+        """Accumulate one device-resident slab payload (mesh mode: a
+        super-slab, per-entry payload tuples) into G / moments."""
+
+        if self.mesh is not None:
+            s, sq = _accum_graph_mesh(self._G, td_dev, tl_dev, self.mesh, wt=wt, ntiles=nt,
+                                      ct=self.ct, exact=exact)
+        else:
+            s, sq = _accum_slab(
+                self._G, td_dev, tl_dev, wt=wt, ntiles=nt, ct=self.ct, exact=exact,
+            )
         self._pending.append((s, sq))
         self._n += n_rows
-        self._count_slabs(1)
+        # real slabs only: the fold bounds float32 rounding, which a
+        # missing (padding) slab does not add
+        self._count_slabs(n_real)
         self._drain_moments(self._pipeline_depth)
 
     @precision_policy()
@@ -370,23 +466,18 @@ class StreamingSparsePCA:
 
         ``key`` (with a ``payload_cache`` dict passed at construction)
         caches the uploaded slab payloads under ``("1dev", key,
-        col_tile)``: repeated passes over unchanged chunks skip the host
-        build and the upload."""
+        col_tile)`` (``"mesh"`` in mesh mode): repeated passes over
+        unchanged chunks skip the host build and the upload."""
 
         self._invalidate_solve()
         cache = self._payload_cache
-        ck = ("1dev", key, self.ct)
+        ck = ("mesh" if self.mesh is not None else "1dev", key, self.ct)
         if cache is not None and key is not None and ck in cache:
             for entry in cache[ck]:
                 self._accum_entry(*entry)
             return self
         store = [] if (cache is not None and key is not None) else None
-        for td, tl, wt, nt, n_rows, exact in _prefetch(self._built(chunk)):
-            entry = (
-                torch.from_numpy(td.view(np.int16) if exact else td).to(self.device),
-                torch.from_numpy(tl).to(self.device),
-                wt, nt, n_rows, exact,
-            )
+        for entry in self._uploaded(chunk):
             if store is not None:
                 store.append(entry)
             self._accum_entry(*entry)
@@ -476,12 +567,12 @@ class StreamingSparsePCA:
                 T, nr = handles.pop(0)
                 outs.append(T[:nr].cpu().numpy())
 
-        for td, tl, wt, nt, n_rows, exact in _prefetch(self._built(chunk)):
-            T = _project_slab(
-                torch.from_numpy(td.view(np.int16) if exact else td).to(self.device),
-                torch.from_numpy(tl).to(self.device),
-                Vp, corr, wt=wt, ntiles=nt, ct=self.ct, exact=exact,
-            )
+        for td, tl, wt, nt, n_rows, exact, *_ in self._uploaded(chunk):
+            kw = dict(wt=wt, ntiles=nt, ct=self.ct, exact=exact)
+            if self.mesh is not None:
+                T = _project_graph_mesh(td, tl, Vp, corr, self.mesh, **kw)
+            else:
+                T = _project_slab(td, tl, Vp, corr, **kw)
             handles.append((T, n_rows))
             drain(self._pipeline_depth)
         drain(0)

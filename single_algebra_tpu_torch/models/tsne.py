@@ -23,8 +23,11 @@ config parity too. Gains, momentum and exaggeration switch at the
 absolute epoch index. The public :func:`run` draws the start ``y0 = 1e-4
 * N(0, 1)`` from a ``torch.Generator`` seeded with ``config.seed`` on the
 run's device (the JAX package's PRNG cannot be reproduced); the private
-``_run_exact`` / ``_run_knn`` take an explicit ``y0``. The ``mesh=``
-branch waits for the port's ``parallel/`` layer (ROADMAP Queue 1 item 4).
+``_run_exact`` / ``_run_knn`` take an explicit ``y0``. ``run(mesh=)``
+shards the knn mode's rows over a ``parallel.Mesh`` (``_KnnMesh``,
+``_descent_mesh``): its block size comes from the slab size, so a mesh
+run is held against the JAX package's mesh run, not the single-device
+one.
 """
 
 from __future__ import annotations
@@ -262,10 +265,11 @@ def _knn_grad(y, e_src, e_dst, e_val, exag, *, block: int, lengths=None):
     return 4.0 * (exag * attr - rep)
 
 
-def _knn_affinities(x: torch.Tensor, config: TSNEConfig):
-    """``(src, dst, val, lengths)`` of the symmetrized kNN affinities on
-    x's device: the kNN graph in float32, the calibration in x's dtype,
-    the symmetrization on the host."""
+def _knn_edges(x: torch.Tensor, config: TSNEConfig):
+    """The symmetrized kNN affinities as a host edge list ``(src, dst,
+    val)`` (:func:`_symmetrize_knn`'s): the kNN graph in float32 on x's
+    device, the calibration in x's dtype, the symmetrization on the
+    host."""
 
     from .umap import _knn_graph
 
@@ -278,14 +282,171 @@ def _knn_affinities(x: torch.Tensor, config: TSNEConfig):
         )
     d, idx = _knn_graph(x.float(), k=k, block=min(2048, max(8, n)))
     p_cond = _calibrate_p_knn(d.to(x.dtype) ** 2, config.perplexity)
-    src, dst, val = _symmetrize_knn(p_cond.cpu().numpy(), idx.cpu().numpy(), n)
+    return _symmetrize_knn(p_cond.cpu().numpy(), idx.cpu().numpy(), n)
+
+
+def _knn_affinities(x: torch.Tensor, config: TSNEConfig):
+    """``(src, dst, val, lengths)`` of :func:`_knn_edges` on x's device."""
+
+    src, dst, val = _knn_edges(x, config)
     src = torch.from_numpy(src.astype(np.int64)).to(x.device)
     dst = torch.from_numpy(dst.astype(np.int64)).to(x.device)
     val = torch.from_numpy(val).to(device=x.device, dtype=x.dtype)
-    return src, dst, val, torch.bincount(src, minlength=n)
+    return src, dst, val, torch.bincount(src, minlength=x.shape[0])
 
 
-def _run_knn(x: torch.Tensor, config: TSNEConfig, *, y0: torch.Tensor):
+# -- the knn mode over a mesh ------------------------------------------------
+
+
+@dataclasses.dataclass
+class _KnnMesh:
+    """The knn mode's layout over a mesh (the JAX package's
+    ``_knn_epoch_chunk_mesh``): row slab ``d`` of ``rs`` rows (``rs`` a
+    multiple of ``block``; ``npad = ndev * rs``) owns the edges whose src
+    lies in it (``es/ed/ev[d]``, with each row's edge count ``lengths[d]``
+    for the segmented sum), its velocity and gains; y lives whole on the
+    home device and is copied to each distinct device every epoch."""
+
+    mesh: object
+    n: int
+    rs: int
+    block: int
+    es: tuple
+    ed: tuple
+    ev: tuple
+    lengths: tuple
+
+    @classmethod
+    def build(cls, src, dst, val, n: int, mesh, config: TSNEConfig, dtype):
+        from .draw_graph import partition_edges_by_slab
+
+        ndev = mesh.size
+        rs = max(-(-n // ndev), 8)
+        block = min(config.repulsion_block, max(rs // 8 // 8 * 8, 8))
+        rs = -(-rs // block) * block
+        es, ed, ev = partition_edges_by_slab(src, dst, val, len(src), ndev, rs)
+        out = ([], [], [], [])
+        for d, dev in enumerate(mesh.devices):
+            lengths = np.bincount(es[d] - d * rs, minlength=rs)
+            for acc, a, dt in zip(out, (es[d], ed[d], ev[d], lengths),
+                                  (torch.int64, torch.int64, dtype, torch.int64)):
+                acc.append(torch.from_numpy(np.ascontiguousarray(a)).to(device=dev, dtype=dt))
+        return cls(mesh, n, rs, block, *(tuple(a) for a in out))
+
+    @property
+    def npad(self) -> int:
+        return self.mesh.size * self.rs
+
+    def real_rows(self, d: int) -> torch.Tensor:
+        """[rs, 1] bool: which of slab d's rows are real points."""
+
+        r = d * self.rs + torch.arange(self.rs, device=self.mesh.devices[d])
+        return (r < self.n)[:, None]
+
+
+def _knn_grad_slab(y, y_sl, r0: int, e_src, e_dst, e_val, lengths, *, block: int,
+                   n_real: int):
+    """One slab's share of the knn-mode gradient: ``(attr, rep, z)`` with
+    the attraction over the slab's src-local edges (segmented sum, no
+    atomics), the unnormalized repulsion of its rows against all of y
+    (padding columns, padding rows and self pairs masked) and its part of
+    the student-t normalizer Z, which the caller reduces over the mesh."""
+
+    rs = y_sl.shape[0]
+    diff = y[e_src] - y[e_dst]
+    numa = 1.0 / (1.0 + (diff * diff).sum(dim=-1))
+    attr = torch.segment_reduce(
+        (e_val * numa)[:, None] * diff, "sum", lengths=lengths, axis=0, unsafe=True,
+    )  # [rs, dim]; filler edges carry val == 0
+
+    sq = (y * y).sum(dim=1)
+    rep = torch.empty_like(y_sl)
+    z = torch.zeros((), dtype=y.dtype, device=y.device)
+    for b0 in range(0, rs, block):
+        b1 = min(b0 + block, rs)
+        yb = y_sl[b0:b1]
+        num = (yb * yb).sum(dim=1)[:, None] + sq[None, :]
+        num.addmm_(yb, y.T, alpha=-2.0)  # squared distances
+        num.clamp_(min=0.0).add_(1.0).reciprocal_()  # student-t kernel
+        num[:, n_real:] = 0.0  # padding columns
+        num[max(n_real - r0 - b0, 0):] = 0.0  # padding rows
+        torch.diagonal(num, offset=r0 + b0).zero_()  # no self pairs
+        z = z + num.sum()
+        num.mul_(num)
+        rep[b0:b1] = num.sum(dim=1, keepdim=True) * yb - num @ y
+    return attr, rep, z
+
+
+def _mesh_grads(lay: _KnnMesh, reps: dict, exag) -> list:
+    """Each slab's gradient rows ``[rs, dim]`` on its device at the padded
+    y held in ``reps`` (one copy per distinct device); Z is added over the
+    slabs on the home device."""
+
+    from ..parallel.sharded import _psum
+
+    mesh, rs = lay.mesh, lay.rs
+    terms = []
+    for d, dev in enumerate(mesh.devices):
+        y = reps[dev]
+        terms.append(_knn_grad_slab(y, y[d * rs:(d + 1) * rs], d * rs, lay.es[d], lay.ed[d],
+                                    lay.ev[d], lay.lengths[d], block=lay.block, n_real=lay.n))
+    z = torch.clamp(_psum((t[2] for t in terms), mesh.home), min=1e-12)
+    return [4.0 * (exag * attr - rep / z.to(attr.device)) for attr, rep, _ in terms]
+
+
+def _knn_grad_mesh(lay: _KnnMesh, y: torch.Tensor, exag) -> torch.Tensor:
+    """The whole mesh gradient at ``y`` ([n, dim] on the home device) ->
+    [n, dim] there."""
+
+    from ..parallel.sharded import _replicas
+
+    yp = torch.zeros((lay.npad, y.shape[1]), dtype=y.dtype, device=y.device)
+    yp[: lay.n] = y
+    grads = _mesh_grads(lay, _replicas(yp, lay.mesh), exag)
+    return torch.cat([g.to(y.device) for g in grads])[: lay.n]
+
+
+def _descent_mesh(lay: _KnnMesh, y0: torch.Tensor, config: TSNEConfig) -> torch.Tensor:
+    """:func:`_descent` over the mesh: velocity and gains per slab, y
+    gathered on the home device each epoch, and the centering mean taken
+    over the real rows (a reduction over the slabs); padding rows stay
+    0."""
+
+    from ..parallel.sharded import _psum, _replicas
+
+    mesh, rs, n = lay.mesh, lay.rs, lay.n
+    home = mesh.home
+    y = torch.zeros((lay.npad, y0.shape[1]), dtype=y0.dtype, device=home)
+    y[:n] = y0
+    vel = [torch.zeros((rs, y0.shape[1]), dtype=y0.dtype, device=dev) for dev in mesh.devices]
+    gains = [torch.ones_like(v) for v in vel]
+    real = [lay.real_rows(d) for d in range(mesh.size)]
+    for i in range(config.epochs):
+        early = i < config.exaggeration_epochs
+        exag = config.early_exaggeration if early else 1.0
+        momentum = config.initial_momentum if early else config.final_momentum
+        reps = _replicas(y, mesh)
+        grads = _mesh_grads(lay, reps, exag)
+        slabs = []
+        for d, dev in enumerate(mesh.devices):
+            g = grads[d]
+            same_sign = (g > 0) == (vel[d] > 0)
+            gains[d] = torch.clamp(torch.where(same_sign, gains[d] * 0.8, gains[d] + 0.2),
+                                   min=0.01)
+            vel[d] = momentum * vel[d] - config.learning_rate * gains[d] * g
+            slabs.append(reps[dev][d * rs:(d + 1) * rs] + vel[d])
+        mean = _psum((torch.where(real[d], s, 0.0).sum(dim=0) for d, s in enumerate(slabs)),
+                     home) / float(n)
+        y = torch.cat([torch.where(real[d], s - mean.to(s.device), 0.0).to(home)
+                       for d, s in enumerate(slabs)])
+    return y[:n]
+
+
+def _run_knn(x: torch.Tensor, config: TSNEConfig, *, y0: torch.Tensor, mesh=None):
+    if mesh is not None:
+        src, dst, val = _knn_edges(x, config)
+        lay = _KnnMesh.build(src, dst, val, x.shape[0], mesh, config, x.dtype)
+        return _descent_mesh(lay, y0, config)
     src, dst, val, lengths = _knn_affinities(x, config)
     block = _knn_block(x.shape[0], config)
 
@@ -309,16 +470,16 @@ def run(x, config: TSNEConfig | None = None, *, mesh=None, device="cuda") -> tor
 
     ``config.mode``: 'exact' (n x n affinities), 'knn' (sparse attraction
     + blocked exact repulsion, the large-n mode), or 'auto' (exact while
-    ``n <= config.exact_max_n``). ``mesh`` raises ``NotImplementedError``
-    until the port has ``parallel/``."""
+    ``n <= config.exact_max_n``). ``mesh`` (a ``parallel.Mesh``) shards
+    the knn mode's rows over its entries (repulsion tiles and src-local
+    attraction per slab, Z and the centering mean reduced on the home
+    device, y gathered there each epoch); it forces 'knn' and puts the run
+    on the mesh's home device."""
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "t-SNE with mesh= waits for the port's parallel/ layer "
-            "(ROADMAP Queue 1 item 4)"
-        )
     if config is None:
         config = TSNEConfig()
+    if mesh is not None:
+        device = mesh.home
     x = torch.as_tensor(x, device=device)
     if not x.is_floating_point():
         x = x.float()
@@ -330,12 +491,14 @@ def run(x, config: TSNEConfig | None = None, *, mesh=None, device="cuda") -> tor
     mode = config.mode
     if mode == "auto":
         mode = "exact" if n <= config.exact_max_n else "knn"
+    if mesh is not None:
+        mode = "knn"  # the sharded layout is the knn mode's formulation
     if mode not in ("exact", "knn"):
         raise ValueError(f"unknown t-SNE mode {config.mode!r}")
     y0 = _start(n, config, x.dtype, x.device)
     if mode == "exact":
         return _run_exact(x, config, y0)
-    return _run_knn(x, config, y0=y0)
+    return _run_knn(x, config, y0=y0, mesh=mesh)
 
 
 def run_f32(x, config: TSNEConfig | None = None, *, device="cuda") -> torch.Tensor:

@@ -242,3 +242,71 @@ def test_cuda_small_gram_eigh_matches_float64(cuda):
     ev = s.double().cpu().numpy() ** 2
     ev_true = np.linalg.svd(X - X.mean(axis=0), compute_uv=False)[:4] ** 2
     assert np.abs(ev - ev_true).max() <= 1e-6 * ev_true[0]
+
+
+def _card_mesh(cuda, n):
+    from single_algebra_tpu_torch.parallel import Mesh
+
+    return Mesh((torch.device("cuda", torch.cuda.current_device()),) * n)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_mesh_of_one_card_equals_the_single_card_fit(cuda):
+    """A 2-entry mesh on one card: the Gram engine's sharded fit is the
+    single-card Gram fit, the tiled and densified engines' sharded fits
+    (the same sketch: both draw it on the home device) are the single-card
+    fits; the tiled kernels launch once per slab and product."""
+
+    from single_algebra_tpu_torch.parallel import sharded_gram_pca, sharded_pca_fit_transform
+
+    X = clustered_counts(6000, 300, seed=9)
+    mesh = _card_mesh(cuda, 2)
+    method = SVDMethod.random(10, 7, PIN.QR)
+    gram = SparsePCABuilder().n_components(4).engine("gram").svd_method(method).build()
+    T1 = gram.fit_transform(SparseMatrix.from_scipy(X))
+    cuda_lib.reset_launch_counts()
+    res = sharded_gram_pca(SparseMatrix.from_scipy(X), mesh, n_components=4)
+    assert cuda_lib.launch_counts["tiled_ell_densify_t"] > 0
+    np.testing.assert_allclose(res.explained_variance.cpu().numpy(), gram.explained_variance_,
+                               rtol=1e-6)
+    assert float((res.transformed - T1).abs().max() / T1.abs().max()) <= 1e-5
+    for engine in ("tiled", "dense"):
+        single = SparsePCABuilder().n_components(4).engine(engine).svd_method(method).build()
+        T1 = single.fit_transform(SparseMatrix.from_scipy(X))
+        cuda_lib.reset_launch_counts()
+        res = sharded_pca_fit_transform(SparseMatrix.from_scipy(X), 4, mesh=mesh,
+                                        engine=engine)
+        if engine == "tiled":  # 1 + 7 fast + 1 precise mv, 7 fast + 1 precise rmv, per slab
+            assert cuda_lib.launch_counts["tiled_ell_spmm_t"] == 2 * 9
+            assert cuda_lib.launch_counts["tiled_ell_rmv_t"] == 2 * 8
+        assert res.transformed.device.type == "cuda"
+        np.testing.assert_allclose(res.explained_variance.cpu().numpy(),
+                                   single.explained_variance_, rtol=1e-5)
+        assert float((res.transformed - T1).abs().max() / T1.abs().max()) <= 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_cuda_sharded_fits_repeat_bit_for_bit(cuda):
+    from single_algebra_tpu_torch.parallel import sharded_gram_pca, sharded_pca_fit_transform
+
+    X = clustered_counts(5000, 260, seed=10)
+    mesh = _card_mesh(cuda, 3)
+    m = SparseMatrix.from_scipy(X)
+    for fit in (lambda: sharded_gram_pca(m, mesh, n_components=4),
+                lambda: sharded_pca_fit_transform(m, 4, mesh=mesh, engine="tiled"),
+                lambda: sharded_pca_fit_transform(m, 4, mesh=mesh, engine="dense",
+                                                  svd_method=SVDMethod.lanczos())):
+        a, b = fit(), fit()
+        assert torch.equal(a.transformed, b.transformed)
+        assert torch.equal(a.explained_variance, b.explained_variance)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_make_mesh_never_repeats_a_card(cuda):
+    from single_algebra_tpu_torch.parallel import make_mesh
+
+    count = torch.cuda.device_count()
+    assert make_mesh(device="cuda").devices == tuple(
+        torch.device("cuda", i) for i in range(count))
+    with pytest.raises(RuntimeError, match="CUDA devices"):
+        make_mesh(count + 1, device="cuda")

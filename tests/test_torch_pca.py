@@ -27,6 +27,9 @@ from single_algebra_tpu_torch import (
     MaskedSparsePCABuilder, SparseMatrix, SparsePCA, SparsePCABuilder,
 )
 from single_algebra_tpu_torch.models import StreamingSparsePCA, tsne
+from single_algebra_tpu_torch.parallel import (
+    ShardedDensified, make_mesh, sharded_gram_pca, sharded_pca_fit_transform,
+)
 from single_algebra_tpu_torch.similarity import CosineSimilarity
 from single_algebra_tpu_torch.linalg import gram as tgram
 from single_algebra_tpu_torch.models import pca as tpca
@@ -566,6 +569,15 @@ ENTRY_POINTS = {
         3, X.shape[1], device="cpu").partial_fit(X).finalize(),
     "tsne.run": lambda X: tsne.run(X[:100].toarray(), tsne.TSNEConfig(
         perplexity=5.0, epochs=2), device="cpu"),
+    "tsne.run(mesh=)": lambda X: tsne.run(X[:100].toarray(), tsne.TSNEConfig(
+        perplexity=5.0, epochs=2), mesh=make_mesh(3, device="cpu")),
+    "StreamingSparsePCA(mesh=)": lambda X: StreamingSparsePCA(
+        3, X.shape[1], mesh=make_mesh(2, device="cpu")).partial_fit(X).finalize(),
+    "sharded_pca_fit_transform": lambda X: sharded_pca_fit_transform(
+        _cpu(X), 3, mesh=make_mesh(2, device="cpu"), engine="tiled"),
+    "sharded_gram_pca": lambda X: sharded_gram_pca(_cpu(X), make_mesh(2, device="cpu"), 3),
+    "ShardedDensified.rmv": lambda X: ShardedDensified.from_matrix(
+        _cpu(X), make_mesh(2, device="cpu")).rmv(torch.ones((X.shape[0], 2))),
 }
 
 

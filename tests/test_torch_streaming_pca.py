@@ -219,8 +219,6 @@ def test_validation_and_guards():
         StreamingSparsePCA(n_components=3, n_features=50000, device="cpu")
     with pytest.raises(ValueError, match="col_tile"):
         StreamingSparsePCA(n_components=3, n_features=50, col_tile=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        StreamingSparsePCA(n_components=3, n_features=50, mesh=object(), device="cpu")
     pca = StreamingSparsePCA(n_components=3, n_features=50, device="cpu")
     with pytest.raises(RuntimeError, match="no rows"):
         pca.col_sums()
@@ -317,3 +315,83 @@ def test_slow_consumer_loses_no_slab(monkeypatch):
     pca.partial_fit(X)
     assert pca._n == 3000
     np.testing.assert_allclose(pca.col_sums(), np.asarray(X.sum(axis=0)).ravel(), rtol=1e-5)
+
+
+# -- the mesh mode -------------------------------------------------------------
+
+
+@pytest.fixture
+def small_slabs(monkeypatch):
+    """128-row slabs in both packages, so a mesh sees several per chunk,
+    and the JAX ``_prefetch`` made synchronous: its end marker drops a
+    queued slab when the consumer lags (the port's waits; see
+    ``test_slow_consumer_loses_no_slab``), which would make the JAX
+    reference lose rows at random."""
+
+    import single_algebra_tpu.models.streaming_pca as jmod
+
+    monkeypatch.setattr(jmod, "_SLAB", 128)
+    monkeypatch.setattr(smod, "_SLAB", 128)
+    monkeypatch.setattr(jmod, "_prefetch", lambda gen, depth=2: gen)
+
+
+def test_streaming_mesh_matches_unsharded(small_slabs):
+    """Mesh streaming (one slab per entry, partial Grams added on the home
+    device) against the single-device stream of the port."""
+
+    from single_algebra_tpu_torch.parallel import make_mesh
+
+    X = matrix(n=900, p=100, seed=6)
+    kw = dict(n_components=4, n_features=100, random_seed=2)
+    ref = stream(StreamingSparsePCA, X, 300, device="cpu", **kw)
+    pca = stream(StreamingSparsePCA, X, 300, mesh=make_mesh(8, device="cpu"), **kw)
+    assert pca.device == torch.device("cpu") and pca._n == 900
+    assert_close_of_max(pca._G.numpy(), ref._G.numpy(), 1e-6)
+    assert_close_of_max(pca.explained_variance_, ref.explained_variance_, 1e-6)
+    np.testing.assert_allclose(pca.col_sums(), ref.col_sums(), rtol=1e-6, atol=1e-3)
+    T, T_ref = pca.transform(X[:300]), ref.transform(X[:300])
+    assert T.shape == (300, 4)
+    signs = np.sign((pca.components_.numpy() * ref.components_.numpy()).sum(1))[None, :]
+    assert_close_of_max(T * signs, T_ref, 1e-5)
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 8])
+@pytest.mark.parametrize("counts", [True, False])
+def test_streaming_mesh_matches_jax_mesh(small_slabs, ndev, counts):
+    from single_algebra_tpu.parallel import make_mesh as jmake_mesh
+    from single_algebra_tpu_torch.parallel import make_mesh
+
+    X = matrix(n=900, p=100, counts=counts, seed=6)
+    kw = dict(n_components=4, n_features=100, random_seed=2)
+    tp = stream(StreamingSparsePCA, X, 300, mesh=make_mesh(ndev, device="cpu"), **kw)
+    jp = stream(JStreaming, X, 300, mesh=jmake_mesh(ndev), **kw)
+    assert tp._n == jp._n == 900
+    assert tp._slabs_since_fold == jp._slabs_since_fold == 9  # real slabs only
+    assert_close_of_max(tp._G.numpy(), np.asarray(jp._G), 1e-6)
+    assert_close_of_max(tp.col_sums_squared(), jp.col_sums_squared(), 1e-6)
+    signs = assert_fits_match(tp, jp)
+    T, Tj = tp.transform(X[:300]), jp.transform(X[:300])
+    assert T.shape == Tj.shape == (300, 4)
+    assert_close_of_max(T * signs.T, Tj, 1e-5)
+
+
+def test_streaming_mesh_payload_cache_and_folds(small_slabs):
+    """The mesh mode caches its uploaded super-slabs under ("mesh", key)
+    and folds the Gram by real slabs: 7 slabs on a 4-entry mesh are two
+    steps but 7 slabs."""
+
+    from single_algebra_tpu_torch.parallel import make_mesh
+
+    X = matrix(n=800, p=60, seed=9)
+    cache = {}
+    pca = StreamingSparsePCA(3, 60, mesh=make_mesh(4, device="cpu"), fold_every=7,
+                             payload_cache=cache)
+    pca.partial_fit(X, key="a")
+    assert list(cache) == [("mesh", "a", 256)] and len(cache[("mesh", "a", 256)]) == 2
+    assert pca._G64 is not None and pca._slabs_since_fold == 0  # 7 real slabs: one fold
+    pca.partial_fit(X, key="a")
+    ref = StreamingSparsePCA(3, 60, device="cpu")
+    ref.partial_fit(X).partial_fit(X)
+    pca.finalize()
+    ref.finalize()
+    assert_close_of_max(pca.explained_variance_, ref.explained_variance_, 1e-6)

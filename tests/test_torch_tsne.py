@@ -267,8 +267,6 @@ def test_run_validation():
         tsne.run(y, tsne.TSNEConfig(perplexity=10.0, mode="bogus"), device="cpu")
     with pytest.raises(ValueError, match="knn_k"):
         tsne.run(y, tsne.TSNEConfig(perplexity=20.0, mode="knn", knn_k=10), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tsne.run(y, tsne.TSNEConfig(perplexity=10.0), mesh=object(), device="cpu")
 
 
 def test_config_carries_every_jax_field():
@@ -286,3 +284,107 @@ def test_run_defaults_to_the_card():
     else:
         with pytest.raises((RuntimeError, AssertionError)):
             tsne.run(x, tsne.TSNEConfig(perplexity=8.0, epochs=5))
+
+
+# -- the mesh mode -------------------------------------------------------------
+
+
+def _mesh_layout(ndev, n, cfg):
+    """The JAX mesh mode's slab rows and repulsion block (``_run_knn``)."""
+
+    rs = max(-(-n // ndev), 8)
+    block = min(cfg.repulsion_block, max(rs // 8 // 8 * 8, 8))
+    return -(-rs // block) * block, block
+
+
+def test_partition_edges_by_slab_matches_jax():
+    from single_algebra_tpu.models.draw_graph import partition_edges_by_slab as jpart
+    from single_algebra_tpu_torch.models.draw_graph import partition_edges_by_slab
+
+    p, idx = random_knn(150, 10, seed=3)
+    src, dst, val = jt._symmetrize_knn(p, idx, 150)
+    for ndev, rs in ((1, 152), (3, 56), (8, 24)):
+        got = partition_edges_by_slab(src, dst, val, len(src), ndev, rs)
+        for a, b in zip(got, jpart(src, dst, val, len(src), ndev, rs)):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 8])
+def test_knn_mesh_descent_matches_jax_from_its_start(ndev):
+    """20 epochs of the mesh mode from the JAX package's y0 over one edge
+    list, against the JAX mesh program (two epoch chunks across the
+    exaggeration switch) on the JAX 8-device CPU mesh."""
+
+    from single_algebra_tpu.models.draw_graph import partition_edges_by_slab as jpart
+    from single_algebra_tpu.parallel import make_mesh as jmake_mesh
+    from single_algebra_tpu_torch.parallel import make_mesh
+
+    n = 210
+    p, idx = random_knn(n, 12, seed=6)
+    src, dst, val = jt._symmetrize_knn(p, idx, n)
+    cfg = tsne.TSNEConfig(epochs=20, exaggeration_epochs=7)
+    jcfg = jt.TSNEConfig(epochs=0, exaggeration_epochs=7)
+    rs, block = _mesh_layout(ndev, n, cfg)
+    es, ed, ev = jpart(src, dst, val, len(src), ndev, rs)
+    y0 = jax_y0(n, jcfg, jnp.float64)
+    state = (jnp.pad(jnp.asarray(y0), ((0, ndev * rs - n), (0, 0))),
+             jnp.zeros((ndev, rs, 2)), jnp.ones((ndev, rs, 2)))
+    for i0, i1 in ((0, 13), (13, 20)):
+        state = jt._knn_epoch_chunk_mesh(
+            state, jnp.asarray(es), jnp.asarray(ed), jnp.asarray(ev), jnp.int32(i0),
+            jnp.int32(i1), jcfg, block, rs, n, jmake_mesh(ndev), "rows")
+    lay = tsne._KnnMesh.build(src, dst, val, n, make_mesh(ndev, device="cpu"), cfg,
+                              torch.float64)
+    assert (lay.rs, lay.block) == (rs, block)
+    y = tsne._descent_mesh(lay, torch.from_numpy(y0), cfg).numpy()
+    assert rel_max(y, state[0][:n]) <= 1e-8
+
+
+@pytest.mark.parametrize("ndev", [1, 3, 8])
+def test_knn_mesh_grad_matches_single_device(ndev):
+    """The mesh gradient (slab attraction, masked slab repulsion, Z
+    reduced over the slabs) is the single-device knn gradient, to 1e-10 of
+    max |g| in float64, and repeats bit for bit."""
+
+    from single_algebra_tpu_torch.parallel import make_mesh
+
+    n = 200
+    p, idx = random_knn(n, 9, seed=2)
+    src, dst, val = jt._symmetrize_knn(p, idx, n)
+    cfg = tsne.TSNEConfig()
+    lay = tsne._KnnMesh.build(src, dst, val, n, make_mesh(ndev, device="cpu"), cfg,
+                              torch.float64)
+    y = torch.from_numpy(np.random.default_rng(4).standard_normal((n, 2)) * 5.0)
+    g = tsne._knn_grad_mesh(lay, y, 12.0)
+    ts, td = (torch.from_numpy(a.astype(np.int64)) for a in (src, dst))
+    g1 = tsne._knn_grad(y, ts, td, torch.from_numpy(val), 12.0, block=64)
+    assert rel_max(g.numpy(), g1.numpy()) <= 1e-10
+    assert torch.equal(g, tsne._knn_grad_mesh(lay, y, 12.0))
+
+
+@pytest.mark.parametrize("ndev", [1, 8])
+def test_knn_mode_mesh_matches_local(ndev):
+    """``run(mesh=)`` separates the clusters as the single-device run does,
+    and the two agree over short runs, before float32 drift compounds."""
+
+    from single_algebra_tpu_torch.parallel import make_mesh
+
+    rng = np.random.default_rng(31)
+    X = np.concatenate([rng.normal(c * 12, 1.0, size=(70, 6)) for c in range(3)]).astype(
+        np.float32)
+    labels = np.repeat(np.arange(3), 70)
+    cfg = tsne.TSNEConfig(mode="knn", perplexity=12.0, epochs=300, exaggeration_epochs=40,
+                          dispatch_chunk=75)
+    mesh = make_mesh(ndev, device="cpu")
+    y_local = tsne.run(X, cfg, device="cpu")
+    y_mesh = tsne.run(X, cfg, mesh=mesh)
+    assert y_mesh.shape == y_local.shape and y_mesh.device == mesh.home
+    assert torch.isfinite(y_mesh).all()
+    assert separation(y_mesh.numpy(), labels) > 3.0
+    cfg5 = tsne.TSNEConfig(mode="knn", perplexity=12.0, epochs=5, exaggeration_epochs=40)
+    np.testing.assert_allclose(tsne.run(X, cfg5, device="cpu").numpy(),
+                               tsne.run(X, cfg5, mesh=mesh).numpy(), rtol=5e-3, atol=1e-5)
+    # a mesh forces the knn mode (this n would take 'exact' under 'auto')
+    y = tsne.run(X, tsne.TSNEConfig(perplexity=12.0, epochs=3), mesh=mesh)
+    y_knn = tsne.run(X, tsne.TSNEConfig(perplexity=12.0, epochs=3, mode="knn"), mesh=mesh)
+    assert torch.equal(y, y_knn)
