@@ -3,8 +3,9 @@
 
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
-    python3 chip_smoke.py    # ~12 minutes: north star, the preprocessing and masked-PCA
-                             # pipeline, streaming PCA, densified path, tiled path, t-SNE
+    python3 chip_smoke.py    # ~17 minutes: north star, the preprocessing and masked-PCA
+                             # pipeline, the single-cell workflow, streaming PCA, densified
+                             # path, tiled path, t-SNE, and the mesh beside them
 
 Phases, one JSON line each:
 
@@ -175,35 +176,64 @@ with the card's name and power limit:
    ``choose_sharded_engine`` must choose an engine whose payload fits ONE
    card's budget (four entries on one card share it).
 21. ``mesh`` ``streaming`` (after ``streaming``): ``StreamingSparsePCA(
-   mesh=)`` over the same 131,072-row chunks: EV within 1e-6 (of the
-   largest) of the single-card stream, the first chunk's scores within
-   1e-5 of max |score|, densify launches = slabs (bf16, fit) + slabs
-   (float32, transform) at held widths, the idle share of a
-   ``partial_fit``.
+   mesh=)`` over the first two 131,072-row chunks (the smoke's time
+   budget), beside a single-card stream over the same chunks: EV within
+   1e-6 (of the largest) of it, the first chunk's scores within 1e-5 of
+   max |score|, densify launches = slabs (bf16, fit) + slabs (float32,
+   transform) at held widths, the idle share of a ``partial_fit``.
 22. ``mesh`` ``dense`` (inside ``dense_path``): the builder's defaults
    (Lanczos) on ``ShardedDensified``, against the densified path's float64
    uncentered truth (1e-5); warm seconds and steps.
 23. ``mesh`` ``tiled`` (inside ``tiled_path``): ``ShardedTiled``. Both
    kernels are first held against their plain versions on slab 0's
    payload at the path's operand shapes (``kernel_spmm`` /
-   ``kernel_rmv`` lines, cases ``mesh_slab_*``); then the randomized fit
+   ``kernel_rmv`` lines, cases ``mesh_slab_*``) and timed beside one
+   cuSPARSE product each at slab 0's rows (``mesh`` ``library_slab``:
+   float32 ``torch.sparse_csr_tensor`` ``A @ B`` and ``A^T @ C``, kp 64
+   and 8, bf16 where torch takes it); then the randomized fit
    at the tiled phase's seed (the same sketch) and ``lanczos_block(8)``,
    each EV within 1e-5 of the single-card fit's, launches as predicted
    from the slab count (randomized: 4 x 9 spmm, 4 x 8 rmv; block
    Lanczos: 4 x steps rmv, 4 x (steps + 1) spmm), and no launch at a
    shape that was not held; ms per product; ``auto`` as in case 20.
 24. ``mesh`` ``tsne`` (inside ``tsne``): ``tsne.run(mesh=)`` in knn mode at
-   50,000, 500 epochs: the mesh gradient within 1e-4 of max |g| of a
-   float64 evaluation, bit for bit on repeat, silhouette at least 0.7, ms
-   per epoch beside the single card's.
+   50,000, 250 epochs (the smoke's time budget): the mesh gradient within
+   1e-4 of max |g| of a float64 evaluation, bit for bit on repeat,
+   silhouette at least 0.7, ms per epoch beside the single card's.
+
+The single-cell workflow (cell 13: ``examples/scrna_pipeline.py``'s path
+through the port's entry points):
+
+25. ``scrna`` (after ``pipeline``, on cell 1's counts and the pipeline's
+   log-normalized matrix, whose Gram engine it reuses):
+   ``calculate_qc_metrics`` (counts and totals exact against the host CSR
+   in float64), ``torch.expm1`` on the card (3 ULP), ``highly_variable_genes``
+   (seurat, 2,000; ``dispersions_norm`` within 1e-5 of a float64 recompute,
+   the mask the truth's away from the cutoff), ``MaskedSparsePCABuilder``'s
+   defaults on that mask (warm; EV within 1e-5 of the float64 masked
+   truth; its densify launches counted), ``neighbors.connectivities(E,
+   15)`` (the IVF index: recall@15 >= 0.95 on 20,000 queries against the
+   exact ``cross_knn``, itself against float64 on 1,000; memberships
+   log2(15) within 1e-3; symmetric), ``leiden`` (native; quality within
+   1e-6 of a float64 modularity), ``KMeans(64)``, ``UMAP`` (one epoch
+   within 1e-4 of max |update| of a float64 CPU epoch with the same draws,
+   bit for bit on repeat), ``recipe_zheng17`` on the counts (Z within
+   1e-5 of max |Z| of a float64 recompute on 2,000 rows); every
+   step's seconds, the IVF lists, launches and times, UMAP's ms per epoch,
+   the peak memory, ARIs against the 64 planted clusters.
+26. ``scrna_blobs`` (after ``tsne``, on its 50,000 blobs): exact
+   ``connectivities`` -> ``leiden`` and ``KMeans(10, n_init=3)`` (ARI >=
+   0.9), ``UMAP`` (silhouette >= 0.7), and on ``Mesh((cuda:0,) * 4)`` the
+   graph identical to the single card's and Lloyd from the same centers
+   within 1e-5.
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 float32 multiply-adds (2 x stored slots x kp) over 67 TFLOP/s. The
 densify kernel's ``launches`` are those of the north star's cold fit plus
-the streaming phase's (both streams), the mesh Gram fit's and the mesh
-stream's; the tiled kernels' those of the cold tiled fit and the mesh
-tiled fits.
+the streaming phase's (both streams), the mesh Gram fit's, the mesh
+stream's and the scrna phase's masked fit; the tiled kernels' those of
+the cold tiled fit and the mesh tiled fits.
 
 Then, as the last three lines: ``{"kernels": [...]}``, the card's
 ``name, power.limit`` from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -241,6 +271,8 @@ SIL_SAMPLE, SIL_FAIL = 5_000, 0.7  # silhouette sample and bar (the TPU run reco
 MESH_ENTRIES = 4  # the mesh phases' entries, all on the one card
 MESH_SINGLE_FAIL = 1e-6  # mesh Gram / stream EV vs the single-card fit, of the largest EV
 MESH_SCORE_ROWS = 1_000  # the mesh Gram fit's score rows held to the single card's
+MESH_STREAM_CHUNKS = 2  # the mesh stream's chunks (cell 10's first 262,144 rows)
+MESH_TSNE_EPOCHS = 250  # the mesh t-SNE's epochs (the single card runs 500)
 KERNEL_REL_FAIL = 1e-5  # spmm / rmv kernel vs plain, relative to max |plain|
 HVG = 2_000  # the pipeline's mask: the top columns of var_col (stands in for HVG selection)
 NORM_TARGET = 1e4  # normalize's target row sum
@@ -252,6 +284,20 @@ SIM_FAIL = 1e-5
 DEVICE = "cuda"  # where the pipeline phases put their matrices and operands
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA's data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+SCRNA_HVG, SCRNA_NEIGHBORS, SCRNA_KMEANS = 2_000, 15, 64  # cell 13: examples/scrna_pipeline.py
+SCRNA_RESOLUTION = 0.5  # Leiden's resolution in the example
+SCRNA_RECALL_QUERIES, SCRNA_F64_ROWS = 20_000, 1_000  # IVF recall queries; float64 kNN rows
+UMAP_EPOCHS, UMAP_REPEAT_EPOCHS = 200, 20  # the fit's epochs; the timed, repeated layout
+ZHENG_ROWS, ZHENG_CHECK_ROWS, ZHENG_SCALE_MAX = N_CELLS, 2_000, 10.0  # recipe_zheng17
+HVG_FAIL = 1e-5  # dispersions_norm vs float64, of the largest |truth|
+RECALL_FAIL, RECALL_TIE = 0.95, 1e-5  # IVF recall@15 vs exact; a tie, relative
+EXACT_KNN_F64_FAIL = 1e-4  # the exact float32 kNN's picks vs float64, of the k-th distance
+MEMBERSHIP_FAIL = 1e-3  # a row's memberships vs log2(k)
+MODULARITY_FAIL = 1e-6  # Leiden's quality vs a float64 recompute
+UMAP_EPOCH_FAIL = 1e-4  # one card epoch vs float64, of max |update|
+ZHENG_FAIL = 1e-5  # recipe_zheng17's Z vs float64, of max |Z|
+ARI_FAIL = 0.9  # the blobs' clusterings against the planted labels
+KMEANS_MESH_FAIL = 1e-5  # mesh Lloyd vs the single card's, of max |center|
 
 
 def bound(nbytes: float, flops: float = 0.0) -> dict:
@@ -1438,31 +1484,38 @@ def phase_tiled_breakdown(torch, op, ell_spmm) -> None:
 # --------------------------------------------------------------------------
 
 
-def _line_truth(indptr, indices, vals, n_lines: int, minor_mask):
+def _line_truth(torch, indptr, indices, vals, n_lines: int, minor_mask):
     """float64 per-line statistics of host CSR arrays (the independent
-    side of the ``stats`` bars): count, sum, sum of squares, min, max over
-    the stored entries, and the same count / sums over the entries whose
-    minor index is masked in; ``line``: each entry's line."""
+    side of the ``stats`` bars), reduced on the card from the uploaded
+    arrays (the counts are integers: every float64 sum here is exact, in
+    any order): count, sum, sum of squares, min, max over the stored
+    entries, and the same count / sums over the entries whose minor index
+    is masked in; ``line``: each entry's line, on the card."""
 
     import numpy as np
 
+    dev = torch.device(DEVICE)
     count = np.diff(indptr)
-    line = np.repeat(np.arange(n_lines, dtype=np.int64), count)
-    v = vals.astype(np.float64)
-    v2 = v * v
-    keep = minor_mask[indices].astype(np.float64)
-    out = dict(count=count, line=line, sum=np.bincount(line, v, n_lines),
-               sumsq=np.bincount(line, v2, n_lines),
-               count_m=np.bincount(line, keep, n_lines).astype(np.int64))
-    v *= keep
-    v2 *= keep
-    out.update(sum_m=np.bincount(line, v, n_lines), sumsq_m=np.bincount(line, v2, n_lines))
+    cnt = torch.from_numpy(count).to(dev)
+    line = torch.repeat_interleave(torch.arange(n_lines, device=dev), cnt)
+    v = torch.from_numpy(vals).to(dev).double()
+    keep = torch.from_numpy(minor_mask).to(dev)[torch.from_numpy(indices).to(dev).long()]
+
+    def per_line(x):
+        out = torch.zeros(n_lines, dtype=torch.float64, device=dev).index_add_(0, line, x)
+        return out.cpu().numpy()
+
+    kv = torch.where(keep, v, torch.zeros_like(v))
+    out = dict(count=count, line=line, sum=per_line(v), sumsq=per_line(v * v),
+               count_m=per_line(keep.double()).astype(np.int64), sum_m=per_line(kv),
+               sumsq_m=per_line(kv * kv))
+    del kv, keep
     big = float(np.finfo(np.float32).max)
-    mins, maxs = np.full(n_lines, big), np.full(n_lines, -big)
-    full = count > 0
-    mins[full] = np.minimum.reduceat(vals, indptr[:-1][full])  # exact in the stored dtype
-    maxs[full] = np.maximum.reduceat(vals, indptr[:-1][full])
-    out.update(min=mins, max=maxs)
+    full = cnt > 0  # exact in the stored dtype: min / max pick stored values
+    mins = torch.segment_reduce(v, "min", lengths=cnt, unsafe=True)
+    maxs = torch.segment_reduce(v, "max", lengths=cnt, unsafe=True)
+    out.update(min=torch.where(full, mins, big).cpu().numpy(),
+               max=torch.where(full, maxs, -big).cpu().numpy())
     return out
 
 
@@ -1524,20 +1577,26 @@ def phase_stats(torch, X):
     rng = np.random.default_rng(12)
     row_mask, col_mask = rng.random(n) < 0.5, rng.random(p) < 0.5
     t0 = time.perf_counter()
-    tr = _line_truth(m._h_indptr, m._h_indices, m._h_data, n, col_mask)
-    tc = _line_truth(col._h_indptr, col._h_indices, col._h_data, p, row_mask)
+    tr = _line_truth(torch, m._h_indptr, m._h_indices, m._h_data, n, col_mask)
+    tc = _line_truth(torch, col._h_indptr, col._h_indices, col._h_data, p, row_mask)
     sizes = np.full(64, n // 64)
     sizes[: n % 64] += 1
     labels = np.repeat(np.arange(64), sizes)  # the generator's row clusters
     bins = tc.pop("line") * 64
-    bins += labels[col._h_indices]
+    bins += torch.from_numpy(labels).to(bins.device)[
+        torch.from_numpy(col._h_indices).to(bins.device).long()]
     del tr["line"]
-    v = col._h_data.astype(np.float64)
-    bs = np.bincount(bins, v, p * 64).reshape(p, 64)
-    bsq = np.bincount(bins, v * v, p * 64).reshape(p, 64)
-    bc = np.bincount(bins, minlength=p * 64).reshape(p, 64)
+    v = torch.from_numpy(col._h_data).to(bins.device).double()
+
+    def per_bin(x):
+        out = torch.zeros(p * 64, dtype=torch.float64, device=bins.device)
+        return out.index_add_(0, bins, x).cpu().numpy().reshape(p, 64)
+
+    bs, bsq, bc = per_bin(v), per_bin(v * v), per_bin(torch.ones_like(v))
     del bins, v
     n_top_rows = min(n, 50_000)
+    top_truth = _top_n_truth(m._h_indptr, m._h_data[: m._h_indptr[n_top_rows]].astype(np.float64),
+                             n_top_rows, 50)
     truth_s = time.perf_counter() - t0
 
     def lay_bytes(lay, *parts):
@@ -1582,7 +1641,7 @@ def phase_stats(torch, X):
          np.where(bc > 1, (bsq - bs * bs / np.maximum(bc, 1)) / np.maximum(bc - 1, 1), 0.0),
          False, C, ("data", "ids", "nnz"), 64),
         ("sum_row_n_top_50", lambda: m.sum_row_n_top(50),
-         _top_n_truth(m._h_indptr, m._h_data.astype(np.float64), n_top_rows, 50), False, R,
+         top_truth, False, R,
          ("data", "nnz"), 1),
     )
     failed = []
@@ -1605,7 +1664,8 @@ def phase_stats(torch, X):
              rows_checked=len(truth))
         if not ok:
             failed.append((name, err))
-    emit("stats_truth", host_float64_s=truth_s, n_top_rows_checked=n_top_rows,
+    emit("stats_truth", float64_s=truth_s, on="the card, from the host CSR arrays",
+         n_top_rows_checked=n_top_rows,
          mask="seeded half of the rows / columns", batches="the 64 generator clusters")
     if failed:
         raise AssertionError(f"statistics off their float64 truth: {failed}")
@@ -1746,7 +1806,8 @@ def phase_pipeline(torch, m) -> dict:
         raise AssertionError(f"log-normalized values rel err {value_err} > {VALUE_REL_FAIL}")
     if not max(errs.values()) <= EV_FAIL:
         raise AssertionError(f"masked PCA EV rel err {errs} > {EV_FAIL}")
-    Xl._operator_cache.clear()  # the Gram engine; the layouts stay for sparse_engine
+    # the Gram engine stays cached for the scrna phase's warm masked fit,
+    # which clears it; the layouts stay for sparse_engine
     return dict(Xl=Xl, Xl64=Xl64, gram=gram, T=T)
 
 
@@ -1783,8 +1844,8 @@ def phase_streaming(torch, X, ev_true, held_widths, Xl64) -> int:
     rows (16 slabs, a seeded sample) of the pipeline's log-normalized
     values (the float32 tier: float32 densify, float32 GEMM) against the
     float64 Gram of those rows (1e-5).
-    -> the densify launches of both streams, and what the mesh stream is
-    held to (the fit's EVs, components and first chunk's scores)."""
+    -> the densify launches of both streams, and the fit's seconds and
+    idle share (printed beside the mesh stream's)."""
 
     import numpy as np
 
@@ -1913,11 +1974,8 @@ def phase_streaming(torch, X, ev_true, held_widths, Xl64) -> int:
         raise AssertionError(f"streaming scores rel err {score_err} > {SCORE_REL_FAIL}")
     if not ev32_err <= EV_FAIL:
         raise AssertionError(f"float32-tier streaming EV rel err {ev32_err} > {EV_FAIL}")
-    # what the mesh stream is held to
-    single = dict(ev=np.asarray(pca.explained_variance_, np.float64),
-                  V=pca.components_.float().cpu(), T0=scores[0], fit_s=fit_s,
-                  transform_s=transform_s, idle=idle)
-    return launches + f32_launches, single
+    # what the mesh stream's line prints beside its own
+    return launches + f32_launches, dict(fit_s=fit_s, idle=idle)
 
 
 def make_blobs(n, d=50, nc=10, seed=0):
@@ -2236,6 +2294,480 @@ def phase_masked_tiled(torch, m, X) -> None:
 # --------------------------------------------------------------------------
 
 
+def ari(labels_a, labels_b) -> float:
+    """Adjusted Rand index of two labelings (host numpy; the port does not
+    ship ``metrics.py`` yet)."""
+
+    import numpy as np
+
+    _, a = np.unique(labels_a, return_inverse=True)
+    _, b = np.unique(labels_b, return_inverse=True)
+    nb = int(b.max()) + 1
+    table = np.bincount(a * nb + b, minlength=(int(a.max()) + 1) * nb).astype(np.float64)
+    table = table.reshape(-1, nb)
+
+    def pairs(x):
+        return float((x * (x - 1) / 2).sum())
+
+    s, sa, sb = pairs(table), pairs(table.sum(axis=1)), pairs(table.sum(axis=0))
+    expected = sa * sb / pairs(np.array([len(a)], np.float64))
+    return (s - expected) / (0.5 * (sa + sb) - expected)
+
+
+def _ulp_max(torch, approx, exact64) -> float:
+    """Largest error of a float32 result in ULPs of the float32 rounding of
+    its float64 value."""
+
+    ref = exact64.float().abs()
+    spacing = (torch.nextafter(ref, torch.full_like(ref, float("inf"))) - ref).double()
+    ok = ref > 0
+    return float(((approx.double() - exact64).abs()[ok] / spacing[ok]).max())
+
+
+def _line_sums64(indptr, vals64):
+    """Per-line sums of CSR values in float64 (a running sum: exact for the
+    integer counts here, whose totals stay below 2^53)."""
+
+    import numpy as np
+
+    cs = np.concatenate([[0.0], np.cumsum(vals64)])
+    return cs[indptr[1:]] - cs[indptr[:-1]]
+
+
+def _modularity64(adj, labels, resolution: float) -> float:
+    """RBConfiguration quality of ``labels`` in float64 over the symmetric
+    CSR ``adj`` Leiden clustered."""
+
+    import numpy as np
+
+    coo = adj.tocoo()
+    w = coo.data.astype(np.float64)
+    strength = np.bincount(coo.row, w, adj.shape[0])
+    m2 = strength.sum()
+    intra = w[labels[coo.row] == labels[coo.col]].sum()
+    tot = np.bincount(labels, strength)
+    return float(intra / m2 - resolution * ((tot / m2) ** 2).sum())
+
+
+def _zheng17_truth(m, rows: int, info: dict, check_rows):
+    """``recipe_zheng17``'s Z on ``check_rows`` in float64 on the host, from
+    the counts' first ``rows`` rows with the recipe's masks and first
+    target: row totals, the first normalization, the HVG columns, the
+    second normalization to the median of their row totals, log1p, the
+    column means and Bessel standard deviations over all ``rows`` rows,
+    the upper clip."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    ip = m._h_indptr[: rows + 1]
+    rs = _line_sums64(ip, m._h_data[: ip[-1]].astype(np.float64))
+    fac1 = np.where(rs > 0, info["target_sum"] / np.where(rs > 0, rs, 1.0), 1.0)
+    col = m.transpose()  # its host CSC arrays: the HVG columns without a scipy slice
+    cols = np.where(info["gene_mask"])[0]
+    cip = col._h_indptr
+    lens = cip[cols + 1] - cip[cols]
+    pos = np.repeat(cip[cols] - np.concatenate([[0], np.cumsum(lens)[:-1]]), lens)
+    pos += np.arange(int(lens.sum()))
+    r = col._h_indices[pos].astype(np.int64)
+    keep = r < rows
+    r = r[keep]
+    v = col._h_data[pos][keep].astype(np.float64) * fac1[r]
+    c = np.repeat(np.arange(len(cols)), lens)[keep]
+    sub = sp.csr_matrix((v, (r, c)), shape=(rows, len(cols)))
+    rs2 = np.asarray(sub.sum(axis=1)).ravel()
+    target2 = float(np.median(rs2[rs2 > 0]))
+    fac2 = np.where(rs2 > 0, target2 / np.where(rs2 > 0, rs2, 1.0), 1.0)
+    sub = sp.diags(fac2) @ sub
+    sub.data = np.log1p(sub.data)
+    mean = np.asarray(sub.sum(axis=0)).ravel() / rows
+    sq = np.asarray(sub.multiply(sub).sum(axis=0)).ravel() / rows
+    std = np.sqrt(np.maximum((sq - mean * mean) * rows / (rows - 1), 0.0))
+    std = np.where(std > 0, std, 1.0)
+    Z = (sub[check_rows].toarray() - mean) / std
+    return np.minimum(Z, ZHENG_SCALE_MAX)
+
+
+def phase_scrna(torch, m, ctx: dict, held_widths) -> int:
+    """Cell 13: the JAX repo's own workflow (``examples/scrna_pipeline.py``)
+    on cell 1's counts ``m`` and the pipeline's log-normalized ``Xl``,
+    through the port's entry points: ``calculate_qc_metrics`` (mito: every
+    13th gene) -> ``highly_variable_genes`` (seurat, 2,000) ->
+    ``MaskedSparsePCABuilder``'s defaults (the pipeline's cached Gram
+    engine: warm) -> ``neighbors.connectivities(E, 15)`` (IVF above 200k
+    rows) -> ``leiden`` (resolution 0.5) -> ``KMeans(64)`` -> ``UMAP`` ->
+    ``recipe_zheng17`` on the counts. Bars: QC counts and totals exact
+    against the host CSR in float64; ``torch.expm1`` within 3 ULP;
+    ``dispersions_norm`` within 1e-5 (of the largest) of a float64 host
+    recompute, the mask the truth's but for genes that close to the
+    cutoff; masked EVs within 1e-5 of the float64 masked truth; IVF
+    recall@15 >= 0.95 on 20,000 sampled queries against the exact
+    ``cross_knn`` (a neighbor as near as the exact k-th counts: ties
+    aside), the exact picks' float64 distances within 1e-4 (of the k-th)
+    of the float64 k nearest on 1,000 rows; every row's
+    memberships sum to log2(15) within 1e-3 (floored-sigma rows aside);
+    the graph symmetric; Leiden native, its quality the float64
+    modularity within 1e-6; one UMAP epoch within 1e-4 of max |update| of
+    a float64 CPU recompute with the same draws, bit for bit on repeat;
+    Z on 2,000 rows within 1e-5 of max |Z| of a float64 host recompute.
+    -> the densify launches of the masked fit."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import (
+        MaskedSparsePCABuilder,
+        calculate_qc_metrics,
+        highly_variable_genes,
+        leiden,
+        neighbors,
+        recipe_zheng17,
+    )
+    from single_algebra_tpu_torch.feature_selection import _normalized_dispersion
+    from single_algebra_tpu_torch.linalg.gram import GramPCAEngine
+    from single_algebra_tpu_torch.models import KMeans, UMAP, UMAPConfig
+    from single_algebra_tpu_torch.models import umap as umod
+    from single_algebra_tpu_torch.ops import cuda_lib
+    from single_algebra_tpu_torch.ops.stats import valid_mask
+
+    n, p = m.shape
+    Xl, Xl64 = ctx["Xl"], ctx["Xl64"]
+    sizes = np.full(64, n // 64)
+    sizes[: n % 64] += 1
+    planted = np.repeat(np.arange(64), sizes)  # the generator's row clusters
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. QC against the host CSR arrays in float64 (reduced on the card: the
+    # sums are exact integers in float64 whatever the order)
+    mito = np.zeros(p, bool)
+    mito[::13] = True
+    obs, var = step("qc", lambda: calculate_qc_metrics(m, qc_vars={"mito": mito}))
+    t0 = time.perf_counter()
+    col = m.transpose()
+    dev = torch.device(DEVICE)
+    v64 = torch.from_numpy(m._h_data).to(dev).double()
+    cols_t = torch.from_numpy(m._h_indices).to(dev).long()
+    rows_t = torch.repeat_interleave(torch.arange(n, device=dev),
+                                     torch.from_numpy(np.diff(m._h_indptr)).to(dev))
+    row_tot = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, rows_t, v64)
+    mito_t = torch.from_numpy(mito).to(dev)[cols_t]
+    mito_tot = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, rows_t, torch.where(mito_t, v64, torch.zeros_like(v64)))
+    col_tot = torch.zeros(p, dtype=torch.float64, device=dev).index_add_(0, cols_t, v64)
+    del v64, cols_t, rows_t, mito_t
+    qc_exact = (np.array_equal(obs["n_genes_by_counts"], np.diff(m._h_indptr))
+                and np.array_equal(obs["total_counts"], row_tot.cpu().numpy())
+                and np.array_equal(obs["total_counts_mito"], mito_tot.cpu().numpy())
+                and np.array_equal(var["n_cells_by_counts"], np.diff(col._h_indptr))
+                and np.array_equal(var["total_counts"], col_tot.cpu().numpy()))
+    bar("qc_exact", qc_exact, truth_s=time.perf_counter() - t0)
+    del row_tot, mito_tot, col_tot
+
+    # 2. torch.expm1 on the card over the log-normalized values
+    d, ids, row_nnz = Xl._device_layout()
+    v = d[valid_mask(ids, row_nnz)]
+    expm1_ulp = _ulp_max(torch, torch.expm1(v), torch.expm1(v.double()))
+    bar("expm1_ulp", expm1_ulp <= LOG1P_ULP_FAIL, max_ulp=expm1_ulp, values=v.numel(),
+        value_range=[float(v.min()), float(v.max())], fail_above=LOG1P_ULP_FAIL)
+    del d, ids, row_nnz, v
+
+    # 3. HVG against a float64 host recompute
+    hvg = step("hvg", lambda: highly_variable_genes(Xl, n_top_genes=SCRNA_HVG, flavor="seurat"))
+    t0 = time.perf_counter()
+    ex = torch.expm1(torch.from_numpy(Xl64.data).to(dev))
+    cols_t = torch.from_numpy(Xl64.indices).to(dev).long()
+    s64 = torch.zeros(p, dtype=torch.float64, device=dev).index_add_(0, cols_t, ex)
+    sq64 = torch.zeros(p, dtype=torch.float64, device=dev).index_add_(0, cols_t, ex * ex)
+    s64, sq64 = s64.cpu().numpy(), sq64.cpu().numpy()
+    del ex, cols_t
+    mean64 = s64 / n
+    var64 = np.maximum(sq64 / n - mean64 * mean64, 0.0) * (n / (n - 1))
+    _, norm64 = _normalized_dispersion(mean64, var64, "seurat", 20)
+    scale = float(np.abs(norm64).max())
+    hvg_err = float(np.abs(np.asarray(hvg.dispersions_norm, np.float64) - norm64).max() / scale)
+    order = np.argsort(-norm64, kind="stable")
+    mask64 = np.zeros(p, bool)
+    mask64[order[:SCRNA_HVG]] = True
+    cutoff = norm64[order[SCRNA_HVG - 1]]
+    near = np.abs(norm64 - cutoff) <= HVG_FAIL * scale
+    off = int(((hvg.mask != mask64) & ~near).sum())
+    bar("hvg", hvg_err <= HVG_FAIL and off == 0, truth_s=time.perf_counter() - t0,
+        dispersions_norm_rel_err=hvg_err,
+        fail_above=HVG_FAIL, mask_mismatch_beyond_cutoff=off, genes_near_cutoff=int(near.sum()),
+        selected=hvg.n_selected)
+
+    # 4. the masked fit on the pipeline's cached Gram engine (warm)
+    cuda_lib.reset_launch_counts()
+    pca = MaskedSparsePCABuilder().mask(hvg.mask).n_components(K).build()
+    E = step("masked_pca", lambda: pca.fit_transform(Xl))
+    launches = cuda_lib.launch_counts["tiled_ell_densify_t"]
+    by_dtype = dict(cuda_lib.densify_launches_by_dtype)
+    eng = Xl._operator_cache.get("auto")
+    is_gram = isinstance(eng, GramPCAEngine)
+    widths = sorted({int(wt) for wt, _ in eng.bwidths}) if is_gram else []
+    t0 = time.perf_counter()
+    ev_raw, _, _ = f64_truth_ev(torch, Xl64, K, uncentered=True, cols=np.where(hvg.mask)[0],
+                                gram=ctx["gram"])
+    ev_truth_s = time.perf_counter() - t0
+    ev_err = _ev_rel_err(pca.explained_variance_, ev_raw)
+    bar("masked_ev", is_gram and ev_err <= EV_FAIL and launches > 0
+        and set(widths) <= set(held_widths) and tuple(E.shape) == (n, K),
+        engine=type(eng).__name__, ev_rel_err=ev_err, fail_above=EV_FAIL, truth_s=ev_truth_s,
+        densify_launches=launches, densify_launches_by_dtype=by_dtype,
+        bucket_widths=widths, held_widths=held_widths)
+    del pca, eng
+    Xl._operator_cache.clear()
+    torch.cuda.empty_cache()
+    E = E.contiguous()
+
+    # 5. the neighbor graph (IVF: n > 200k); the IVF neighbors it drew are
+    # recorded for the bars
+    ivf_knn, drawn = neighbors.ivf_knn, []
+
+    def recording(*args, **kwargs):
+        out = ivf_knn(*args, **kwargs)
+        drawn.append(out)
+        return out
+
+    neighbors.ivf_knn = recording
+    try:
+        S = step("connectivities", lambda: neighbors.connectivities(E, SCRNA_NEIGHBORS))
+    finally:
+        neighbors.ivf_knn = ivf_knn
+    (D, I), = drawn
+    bar("graph_symmetric", (S != S.T).nnz == 0, nnz=int(S.nnz))
+    # the index again (the same seeded build): its lists, and the launches
+    # and seconds of the recall queries' search (one profiler window)
+    L, npr = neighbors._ivf_plan(n)
+    t0 = time.perf_counter()
+    index, ivf_build_s = _synced(torch, lambda: neighbors._IvfIndex(
+        E, neighbors._ivf_centroids(E, L, 0)))
+    q = torch.from_numpy(np.sort(np.random.default_rng(3).choice(
+        n, SCRNA_RECALL_QUERIES, replace=False))).to(E.device)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, ivf_search_s = _synced(torch, lambda: index.search(E[q], q, k=SCRNA_NEIGHBORS,
+                                                             n_probe=npr))
+    ivf_kernels = sum(1 for e in prof.events()
+                      if e.device_type == DeviceType.CUDA and not e.name.startswith("Mem"))
+    del prof
+    k = SCRNA_NEIGHBORS
+    ed_, ei_ = neighbors.cross_knn(E[q], E, k + 1)
+    first = torch.argsort((ei_ == q[:, None]).to(torch.int8), dim=1, stable=True)[:, :k]
+    ed_, ei_ = ed_.gather(1, first), ei_.gather(1, first)  # the self-hit dropped
+    recall_ids = float((I[q][:, :, None] == ei_[:, None, :]).any(dim=2).sum()) / ei_.numel()
+    # ties aside: an IVF neighbor counts when it is as near as the exact k-th
+    kth = ed_[:, -1:]
+    recall = float((D[q] <= kth * (1 + RECALL_TIE)).sum(dim=1).clamp(max=k).sum()) / ei_.numel()
+    # the exact kNN itself: the float64 distances of its picks against the
+    # float64 k nearest, on the first checked rows
+    E64 = E.double()
+    sq64 = (E64 * E64).sum(dim=1)
+    exact_err = 0.0
+    for r0 in range(0, SCRNA_F64_ROWS, 250):
+        rows = q[r0:r0 + 250]
+        d64 = sq64[rows, None] - 2.0 * (E64[rows] @ E64.T) + sq64[None, :]
+        d64.scatter_(1, rows[:, None], float("inf"))
+        best = torch.sqrt(torch.clamp(-torch.topk(-d64, k, dim=1).values, min=0.0))
+        picked = torch.sqrt(torch.clamp(d64.gather(1, ei_[r0:r0 + 250]), min=0.0))
+        picked = torch.sort(picked, dim=1).values
+        exact_err = max(exact_err, float(((picked - best).abs() / best[:, -1:].clamp(
+            min=1e-30)).max()))
+        del d64
+    del E64, sq64
+    rho, sigma = umod._smooth_knn(D)
+    W = torch.exp(-torch.clamp(D - rho[:, None], min=0.0) / sigma[:, None])
+    floor = float(1e-3 * D.mean())
+    free = sigma > floor * (1 + 1e-6)
+    memb_err = float((W.sum(dim=1) - float(np.log2(SCRNA_NEIGHBORS))).abs()[free].max())
+    bar("ivf", recall >= RECALL_FAIL and exact_err <= EXACT_KNN_F64_FAIL
+        and memb_err <= MEMBERSHIP_FAIL, recall_at_15=recall, fail_below=RECALL_FAIL,
+        recall_at_15_same_ids=recall_ids, tie_tolerance=RECALL_TIE,
+        queries=SCRNA_RECALL_QUERIES, exact_f64_dist_rel_err=exact_err,
+        exact_rows_f64=SCRNA_F64_ROWS, exact_fail_above=EXACT_KNN_F64_FAIL,
+        membership_sum_err=memb_err, membership_fail_above=MEMBERSHIP_FAIL,
+        floored_rows=int((~free).sum()), n_lists=L, cap=index.cap, n_probe=npr,
+        mean_list=n / L, list_store_gb=(index.Xs.numel() * 4 + index.ids.numel() * 8) / 1e9,
+        padded_store_gb=L * index.cap * E.shape[1] * 4 / 1e9, build_s=ivf_build_s,
+        recall_queries_search_s_profiled=ivf_search_s,
+        recall_queries_cuda_kernels=ivf_kernels,
+        truth_s=time.perf_counter() - t0 - ivf_build_s - ivf_search_s)
+    del index, D, I, W, rho, sigma, ed_, ei_
+
+    # 6. Leiden
+    lr = step("leiden", lambda: leiden(S, resolution=SCRNA_RESOLUTION, seed=0))
+    t0 = time.perf_counter()
+    adj = S.astype(np.float32)  # what leiden clustered: S is symmetric (checked above)
+    adj.eliminate_zeros()
+    q64 = _modularity64(adj, lr.labels, SCRNA_RESOLUTION)
+    del adj
+    bar("leiden", lr.backend == "native" and abs(lr.quality - q64) <= MODULARITY_FAIL,
+        backend=lr.backend, quality=lr.quality, quality_f64=q64, fail_above=MODULARITY_FAIL,
+        truth_s=time.perf_counter() - t0,
+        communities=lr.n_communities, ari_planted=ari(lr.labels, planted))
+
+    # 7. KMeans
+    km = step("kmeans", lambda: KMeans(SCRNA_KMEANS, n_init=1).fit(E))
+    bar("kmeans", bool(torch.isfinite(km.cluster_centers_).all()), iterations=km.n_iter_,
+        inertia=km.inertia_, ari_planted=ari(km.labels_.cpu().numpy(), planted))
+    del km
+
+    # 8. UMAP, then one epoch against float64 on the CPU with the same draws
+    um = UMAP(UMAPConfig(n_neighbors=SCRNA_NEIGHBORS, n_epochs=UMAP_EPOCHS))
+    Y = step("umap", lambda: um.fit_transform(E))
+    ed = um.graph_
+    a, b = umod._fit_ab(1.0, 0.1)
+    gen = torch.Generator(device=E.device)
+    gen.manual_seed(5)
+    active = torch.rand(ed.heads.shape[0], generator=gen, device=E.device) < ed.weights
+    negs = torch.randint(0, n, (ed.heads.shape[0], 5), generator=gen, device=E.device)
+    alpha = umod._alpha(1.0, 0, UMAP_EPOCHS)
+    Y1 = umod._layout_epoch(Y, ed, active, negs, alpha, a, b)
+    Y1b = umod._layout_epoch(Y, ed, active, negs, alpha, a, b)
+    epoch_identical = bool(torch.equal(Y1, Y1b))
+    upd = (Y1 - Y).cpu().double()
+    del Y1b
+    cpu = type(ed).__new__(type(ed))
+    for attr, val in vars(ed).items():
+        setattr(cpu, attr, val.cpu() if isinstance(val, torch.Tensor) else val)
+    t0 = time.perf_counter()
+    Y64 = Y.cpu().double()
+    upd64 = umod._layout_epoch(Y64, cpu, active.cpu(), negs.cpu(), alpha, a, b) - Y64
+    cpu_epoch_s = time.perf_counter() - t0
+    del cpu, Y64, active, negs
+    epoch_err = float((upd - upd64).abs().max() / upd64.abs().max())
+
+    def layout():
+        g = torch.Generator(device=E.device)
+        g.manual_seed(7)
+        return umod._optimize_layout(Y, ed, g, n_epochs=UMAP_REPEAT_EPOCHS, neg_rate=5,
+                                     a=a, b=b, lr=1.0)
+
+    Ya = layout()
+    Yb, repeat_s = _synced(torch, layout)
+    runs_identical = bool(torch.equal(Ya, Yb))
+    del Ya, Yb
+    bar("umap", epoch_err <= UMAP_EPOCH_FAIL and epoch_identical and runs_identical
+        and tuple(Y.shape) == (n, 2) and bool(torch.isfinite(Y).all()),
+        epoch_rel_err_f64=epoch_err, fail_above=UMAP_EPOCH_FAIL, cpu_f64_epoch_s=cpu_epoch_s,
+        epoch_bit_identical=epoch_identical, layout_repeat_bit_identical=runs_identical,
+        epochs=UMAP_EPOCHS, edges=int(ed.heads.shape[0]),
+        ms_per_epoch=repeat_s / UMAP_REPEAT_EPOCHS * 1e3,
+        silhouette_planted=silhouette_on_card(torch, Y, planted, SIL_SAMPLE))
+    del um, ed, Y, E, upd, upd64
+    torch.cuda.empty_cache()
+
+    # 9. recipe_zheng17 on the counts
+    mz = m if ZHENG_ROWS >= n else m.select_rows(np.arange(ZHENG_ROWS))
+    Z, info = step("recipe_zheng17", lambda: recipe_zheng17(mz))
+    rows = min(ZHENG_ROWS, n)
+    chk = np.sort(np.random.default_rng(4).choice(rows, ZHENG_CHECK_ROWS, replace=False))
+    t0 = time.perf_counter()
+    Zt = _zheng17_truth(m, rows, info, chk)
+    zheng_truth_s = time.perf_counter() - t0
+    Zc = Z[torch.from_numpy(chk).to(Z.device)].cpu().numpy().astype(np.float64)
+    z_err = float(np.abs(Zc - Zt).max() / np.abs(Zt).max())
+    bar("zheng17", z_err <= ZHENG_FAIL and tuple(Z.shape) == (rows, 1000)
+        and bool(torch.isfinite(Z).all()), z_rel_err_f64=z_err, fail_above=ZHENG_FAIL,
+        rows=rows, check_rows=ZHENG_CHECK_ROWS, truth_s=zheng_truth_s,
+        z_shape=list(Z.shape), hvg_selected=int(info["hvg"].n_selected))
+    del Z, mz
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    emit("scrna", n=n, p=p, steps_s=steps, peak_alloc_gb=peak / 1e9, checks=checks,
+         card=card())
+    if failed:
+        raise AssertionError(f"scrna: bars not met: {failed}")
+    return launches
+
+
+def phase_scrna_blobs(torch) -> None:
+    """Cell 13 on the t-SNE phase's blobs (50,000 x 50, 10 clusters): exact
+    ``connectivities`` -> ``leiden``, ``KMeans(10, n_init=3)`` and ``UMAP`` against
+    the planted labels (ARI >= 0.9, ARI >= 0.9, silhouette of 5,000
+    sampled points >= 0.7), then the ``mesh=`` branches on
+    ``Mesh((cuda:0,) * 4)``: the graph identical to the single card's,
+    KMeans from the same centers within 1e-5 (of the largest |center|),
+    the same labels."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import leiden, neighbors
+    from single_algebra_tpu_torch.models import KMeans, UMAP, UMAPConfig
+    from single_algebra_tpu_torch.models import kmeans as kmod
+
+    x, labels = make_blobs(TSNE_KNN_N)
+    xt = torch.from_numpy(x).to(DEVICE)
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        out, steps[name] = _synced(torch, fn)
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    S = step("connectivities", lambda: neighbors.connectivities(xt, SCRNA_NEIGHBORS))
+    lr = step("leiden", lambda: leiden(S, resolution=SCRNA_RESOLUTION, seed=0))
+    a_l = ari(lr.labels, labels)
+    bar("leiden", a_l >= ARI_FAIL and lr.backend == "native", ari=a_l, fail_below=ARI_FAIL,
+        communities=lr.n_communities, backend=lr.backend)
+    # three k-means++ starts, the example's setting: a single start merged two
+    # of these blobs for one seed in five (the port on the CPU, 5,000 points)
+    km = step("kmeans", lambda: KMeans(10, n_init=3).fit(xt))
+    a_k = ari(km.labels_.cpu().numpy(), labels)
+    bar("kmeans", a_k >= ARI_FAIL, ari=a_k, fail_below=ARI_FAIL, iterations=km.n_iter_)
+    Y = step("umap", lambda: UMAP(UMAPConfig(n_neighbors=SCRNA_NEIGHBORS,
+                                             n_epochs=UMAP_EPOCHS)).fit_transform(xt))
+    sil = silhouette_on_card(torch, Y, labels, SIL_SAMPLE) if bool(torch.isfinite(Y).all()) \
+        else float("nan")
+    bar("umap", sil >= SIL_FAIL, silhouette=sil, fail_below=SIL_FAIL)
+    del Y
+
+    mesh = card_mesh(torch)
+    Sm = step("connectivities_mesh", lambda: neighbors.connectivities(xt, SCRNA_NEIGHBORS,
+                                                                      mesh=mesh))
+    same = (S.shape == Sm.shape and np.array_equal(S.indptr, Sm.indptr)
+            and np.array_equal(S.indices, Sm.indices))
+    diff = float(np.abs(S.data - Sm.data).max()) if same else float("inf")
+    bar("connectivities_mesh", same and diff == 0.0, max_abs_diff=diff)
+    x2 = kmod._row_sq_norms(xt)
+    gen = torch.Generator(device=xt.device)
+    gen.manual_seed(11)
+    w = torch.ones(xt.shape[0], device=xt.device)
+    C0 = kmod._plusplus_init(gen, xt, x2, w, 10)
+    tol2 = KMeans(10)._tol2(xt)
+    single = step("kmeans_lloyd", lambda: kmod._lloyd(xt, x2, tol2, C0, w, k=10, max_iter=300))
+    meshed = step("kmeans_lloyd_mesh", lambda: kmod._lloyd_mesh(mesh, xt, x2, tol2, C0, k=10,
+                                                                max_iter=300))
+    c_err = float((meshed[0] - single[0]).abs().max() / single[0].abs().max())
+    bar("kmeans_mesh", c_err <= KMEANS_MESH_FAIL and torch.equal(meshed[1], single[1]),
+        center_rel_err=c_err, fail_above=KMEANS_MESH_FAIL, iterations=[single[3], meshed[3]])
+    emit("scrna_blobs", n=x.shape[0], d=x.shape[1], clusters=10, entries=mesh.size,
+         steps_s=steps, checks=checks, card=card())
+    if failed:
+        raise AssertionError(f"scrna blobs: bars not met: {failed}")
+
+
 def card_mesh(torch):
     """``MESH_ENTRIES`` entries, each naming card 0."""
 
@@ -2366,12 +2898,13 @@ def phase_mesh_cell1(torch, X, single: dict, ev_true, held_widths) -> int:
 
 
 def phase_mesh_streaming(torch, X, single: dict, held_widths) -> int:
-    """Cell 12's stream: ``StreamingSparsePCA(mesh=)`` over cell 10's
-    chunks, fit and transform: EV within 1e-6 (of the largest) of the
-    single-card stream, the first chunk's scores within 1e-5 of max
-    |score|, densify launches = slabs (bf16) + slabs (float32) at held
-    widths; the idle share of one ``partial_fit``. -> its densify
-    launches."""
+    """Cell 12's stream, over cell 10's first ``MESH_STREAM_CHUNKS`` chunks
+    (the smoke's time budget): ``StreamingSparsePCA(mesh=)`` fit and
+    transform beside a single-card stream over the same chunks. Bars: EV
+    within 1e-6 (of the largest) of that single-card stream, the first
+    chunk's scores within 1e-5 of max |score|, densify launches = slabs
+    (bf16) + slabs (float32) at held widths; the idle share of one
+    ``partial_fit``. -> its densify launches."""
 
     import numpy as np
 
@@ -2380,8 +2913,10 @@ def phase_mesh_streaming(torch, X, single: dict, held_widths) -> int:
     from single_algebra_tpu_torch.ops import cuda_lib
 
     mesh = card_mesh(torch)
-    n, p = X.shape
-    chunks = [X[r0:r0 + STREAM_CHUNK] for r0 in range(0, n, STREAM_CHUNK)]
+    p = X.shape[1]
+    chunks = [X[r0:r0 + STREAM_CHUNK]
+              for r0 in range(0, STREAM_CHUNK * MESH_STREAM_CHUNKS, STREAM_CHUNK)]
+    n = sum(c.shape[0] for c in chunks)
     slabs = sum(-(-c.shape[0] // smod._SLAB) for c in chunks)
     widths: dict = {}
     payload = smod._slab_payload
@@ -2391,13 +2926,10 @@ def phase_mesh_streaming(torch, X, single: dict, held_widths) -> int:
         widths[out[2]] = widths.get(out[2], 0) + 1
         return out
 
-    smod._slab_payload = recording
-    try:
+    def stream(**where):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda_lib.reset_launch_counts()
         t0 = time.perf_counter()
-        pca = StreamingSparsePCA(n_components=K, n_features=p, mesh=mesh)
+        pca = StreamingSparsePCA(n_components=K, n_features=p, **where)
         for c in chunks:
             pca.partial_fit(c)
         pca.finalize()
@@ -2407,27 +2939,37 @@ def phase_mesh_streaming(torch, X, single: dict, held_widths) -> int:
         t0 = time.perf_counter()
         scores = [pca.transform(c) for c in chunks]
         torch.cuda.synchronize()
-        transform_s = time.perf_counter() - t0
+        return pca, scores, fit_s, time.perf_counter() - t0, fit_launches
+
+    ref, ref_scores, ref_fit_s, ref_transform_s, _ = stream(device=DEVICE)
+    smod._slab_payload = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cuda_lib.reset_launch_counts()
+        pca, scores, fit_s, transform_s, fit_launches = stream(mesh=mesh)
         launches = cuda_lib.launch_counts["tiled_ell_densify_t"]
         by_dtype = dict(cuda_lib.densify_launches_by_dtype)
         peak = torch.cuda.max_memory_allocated()
     finally:
         smod._slab_payload = payload
     ev = np.asarray(pca.explained_variance_, np.float64)
-    ev_err = _ev_rel_err(ev, single["ev"])
-    signs = np.sign((pca.components_.float().cpu() * single["V"]).sum(dim=1).numpy())
-    score_err = float(np.abs(scores[0] * signs[None, :] - single["T0"]).max()
-                      / np.abs(single["T0"]).max())
+    ev_ref = np.asarray(ref.explained_variance_, np.float64)
+    ev_err = _ev_rel_err(ev, ev_ref)
+    signs = np.sign((pca.components_.float() * ref.components_.float()).sum(dim=1).cpu().numpy())
+    score_err = float(np.abs(scores[0] * signs[None, :] - ref_scores[0]).max()
+                      / np.abs(ref_scores[0]).max())
     rows_ok = sum(len(t) for t in scores) == n and all(np.isfinite(t).all() for t in scores)
-    del pca, scores
+    del pca, scores, ref, ref_scores
     torch.cuda.empty_cache()
     spare = StreamingSparsePCA(n_components=K, n_features=p, mesh=mesh)
     idle = device_idle(torch, lambda: spare.partial_fit(chunks[0]))
     del spare
     torch.cuda.empty_cache()
-    emit("mesh", case="streaming", n=n, p=p, chunk_rows=STREAM_CHUNK, slabs=slabs,
-         entries=mesh.size, fit_s=fit_s, transform_s=transform_s,
-         single_card_fit_s=single["fit_s"], single_card_transform_s=single["transform_s"],
+    emit("mesh", case="streaming", n=n, p=p, chunk_rows=STREAM_CHUNK, chunks=len(chunks),
+         slabs=slabs, entries=mesh.size, fit_s=fit_s, transform_s=transform_s,
+         single_card_same_chunks_fit_s=ref_fit_s,
+         single_card_same_chunks_transform_s=ref_transform_s,
+         single_card_all_chunks_fit_s=single["fit_s"],
          partial_fit_idle=idle, single_card_partial_fit_idle=single["idle"],
          peak_alloc_gb=peak / 1e9, densify_launches=launches, densify_launches_fit=fit_launches,
          densify_launches_by_dtype=by_dtype, slab_widths=dict(sorted(widths.items())),
@@ -2527,6 +3069,25 @@ def phase_mesh_tiled(torch, m, ev_single, lanczos_single: dict, kernel_result: d
                        ntiles=nt, ct=ct, kp=kp, odt=odt, rmv=rmv)
         for name in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")[:2 if rmv else 1]:
             held.add((name, slab.tdata.shape[1], kp, slab.tdata.dtype, odt))
+    # the library yardsticks at a slab's rows (cuSPARSE through torch's CSR)
+    import scipy.sparse as sp
+
+    rs = op.rows_per_shard
+    ip = m._h_indptr
+    slab_csr = sp.csr_matrix((m._h_data[:ip[rs]], m._h_indices[:ip[rs]], ip[:rs + 1]),
+                             shape=(rs, p))
+    lib_gen = torch.Generator(device="cuda")
+    lib_gen.manual_seed(6)
+    lib_ms = {}
+    for name, M, width in (("tiled_ell_spmm_t", slab_csr, p),
+                           ("tiled_ell_rmv_t", slab_csr.T.tocsr(), rs)):
+        A = csr_on_card(torch, M, torch.float32)
+        Dk = torch.randn((width, 64), generator=lib_gen, device="cuda")
+        lib_ms[name] = _time_ms(torch, lambda: A @ Dk, 3)
+        del A, Dk
+    emit("mesh", case="library_slab", rows=rs, kp=64, call="float32 CSR @ dense",
+         library_ms=lib_ms, card=card())
+    del slab_csr
     if slab.tdata_lo is not None:
         raise AssertionError("cell 2's counts are bf16-exact: a lo payload was not expected")
 
@@ -2605,12 +3166,17 @@ def phase_mesh_tiled(torch, m, ev_single, lanczos_single: dict, kernel_result: d
 
 
 def phase_mesh_tsne(torch, x, labels, cfg, single_epoch_ms: float) -> None:
-    """Cell 12's t-SNE: ``tsne.run(mesh=)`` (knn mode) on the knn phase's
-    blobs: the mesh gradient at a seeded y within 1e-4 of max |g| of a
-    float64 evaluation and bit for bit on repeat, finite output, a
-    silhouette of at least 0.7; ms per epoch beside the single card's."""
+    """Cell 12's t-SNE: ``tsne.run(mesh=)`` (knn mode, ``MESH_TSNE_EPOCHS``
+    epochs: the smoke's time budget) on the knn phase's blobs: the mesh
+    gradient at a seeded y within 1e-4 of max |g| of a float64 evaluation
+    and bit for bit on repeat, finite output, a silhouette of at least
+    0.7; ms per epoch beside the single card's."""
+
+    import dataclasses
 
     from single_algebra_tpu_torch.models import tsne
+
+    cfg = dataclasses.replace(cfg, epochs=MESH_TSNE_EPOCHS)
 
     mesh = card_mesh(torch)
     dev = mesh.home
@@ -2680,7 +3246,11 @@ def _phases(torch) -> int:
     launches += timed("mesh_cell1", phase_mesh_cell1, torch, X, single, ev_true, held)
     del single
     torch.cuda.empty_cache()
-    ctx = timed("pipeline", phase_pipeline, torch, timed("stats", phase_stats, torch, X))
+    m = timed("stats", phase_stats, torch, X)
+    ctx = timed("pipeline", phase_pipeline, torch, m)
+    launches += timed("scrna", phase_scrna, torch, m, ctx, held)
+    del m
+    torch.cuda.empty_cache()
     stream_launches, single = timed("streaming", phase_streaming, torch, X, ev_true, held,
                                     ctx["Xl64"])
     launches += stream_launches
@@ -2699,6 +3269,7 @@ def _phases(torch) -> int:
     tiled_launches = {name: tiled_launches[name] + mesh_launches[name] for name in tiled_launches}
     torch.cuda.empty_cache()
     timed("tsne", phase_tsne, torch)
+    timed("scrna_blobs", phase_scrna_blobs, torch)
     emit("seconds", of="smoke", s=time.perf_counter() - t0)
     kernels = [dict(name="tiled_ell_densify_t", source=KERNEL_SRC, line=221,
                     launches=launches, **kern)]

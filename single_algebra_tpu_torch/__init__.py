@@ -21,9 +21,16 @@ Lanczos (the builders' default) and block-Lanczos solvers; the
 ``similarity`` measures; t-SNE (``models.tsne``, exact and knn modes),
 ``StreamingSparsePCA``, and the mesh layer ``parallel`` (row-sharded
 engines, sharded PCA and Gram PCA over a one-process ``Mesh`` of devices,
-and the ``mesh=`` branches of t-SNE and streaming PCA). Every public fit,
-transform and product runs under :func:`precision_policy` (full float32,
-the caller's flags restored after).
+and the ``mesh=`` branches of t-SNE and streaming PCA). The single-cell
+workflow after them: ``qc`` (QC metrics, cell / gene filters),
+``preprocess`` (normalize_total, TF-IDF, Pearson residuals, aggregates,
+scale, regress_out, ComBat, sampling), ``feature_selection`` (HVG
+selection, four flavors), ``recipes`` (the three scanpy recipes),
+``neighbors`` (exact, mesh and IVF kNN, connectivities, bbknn),
+``models.KMeans``, ``models.UMAP`` and ``cluster`` (Leiden, PAGA,
+dendrogram). Every public fit, transform and product runs under
+:func:`precision_policy` (full float32, the caller's flags restored
+after).
 """
 
 from .types import (  # noqa: F401
@@ -43,6 +50,24 @@ from .models import (  # noqa: F401
     make_engine_operator,
     tsne,
 )
-from . import dense, similarity  # noqa: F401
+from .feature_selection import (  # noqa: F401
+    HVGResult,
+    highly_variable_genes,
+    highly_variable_genes_from_moments,
+)
+from .qc import calculate_qc_metrics  # noqa: F401
+from .cluster import leiden  # noqa: F401
+from .preprocess import (  # noqa: F401
+    combat,
+    normalize_pearson_residuals,
+    regress_out,
+    scale,
+)
+from .recipes import (  # noqa: F401
+    recipe_pearson_residuals,
+    recipe_seurat,
+    recipe_zheng17,
+)
+from . import cluster, dense, neighbors, preprocess, qc, similarity  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,13 +1,16 @@
-"""Lazy g++ build + ctypes bindings of the host converters.
+"""Lazy g++ build + ctypes bindings of the host converters and of Leiden.
 
-``ell_convert.cpp`` is the JAX package's converter source, copied
-unchanged (the JAX package's own loader cannot be imported: its package
-``__init__`` imports jax). It is compiled with g++ on first use into the
-build directory (``build/native/`` beside the package, or
-``$SINGLE_ALGEBRA_TORCH_BUILD_DIR/native``), under a name keyed by the
-source's hash so an edited source never loads a stale library. Every
-caller falls back to the numpy implementation in ``sparse.convert`` when
-no compiler is available or ``SINGLE_ALGEBRA_TPU_NO_NATIVE=1`` is set.
+``ell_convert.cpp`` and ``leiden.cpp`` are the JAX package's native
+sources, copied unchanged (the JAX package's own loader cannot be
+imported: its package ``__init__`` imports jax). Each is compiled with g++
+on first use into the build directory (``build/native/`` beside the
+package, or ``$SINGLE_ALGEBRA_TORCH_BUILD_DIR/native``), under a name
+keyed by the source's hash so an edited source never loads a stale
+library, through a temporary file and an atomic rename (concurrent test
+workers race safely). Every converter caller falls back to the numpy
+implementation in ``sparse.convert``, and ``cluster.leiden`` to its
+Python Leiden, when no compiler is available or
+``SINGLE_ALGEBRA_TPU_NO_NATIVE=1`` is set.
 """
 
 from __future__ import annotations
@@ -23,9 +26,12 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "ell_convert.cpp")
+_LEIDEN_SRC = os.path.join(_HERE, "leiden.cpp")
 _lock = threading.Lock()
 _lib = None
 _tried = False
+_leiden_lib = None
+_leiden_tried = False
 
 
 def build_dir(kind: str) -> str:
@@ -45,14 +51,15 @@ def source_tag(path: str) -> str:
         return hashlib.sha256(f.read()).hexdigest()[:16]
 
 
-def _build() -> str | None:
-    so = os.path.join(build_dir("native"), f"ell_convert_{source_tag(_SRC)}.so")
+def _build(src: str = _SRC) -> str | None:
+    stem = os.path.splitext(os.path.basename(src))[0]
+    so = os.path.join(build_dir("native"), f"{stem}_{source_tag(src)}.so")
     if os.path.exists(so):
         return so
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
     os.close(fd)
     base = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
-            _SRC, "-o", tmp]
+            src, "-o", tmp]
     # OpenMP parallelizes the row loops; fall back to serial if the
     # toolchain lacks it
     try:
@@ -130,6 +137,64 @@ def get_lib():
         lib.f32_bf16_exact.restype = ctypes.c_int32
         _lib = lib
         return _lib
+
+
+def get_leiden_lib():
+    """The loaded Leiden ctypes library, or None when native is
+    unavailable."""
+
+    global _leiden_lib, _leiden_tried
+    if _leiden_tried:
+        return _leiden_lib
+    with _lock:
+        if _leiden_tried:
+            return _leiden_lib
+        _leiden_tried = True
+        if os.environ.get("SINGLE_ALGEBRA_TPU_NO_NATIVE"):
+            return None
+        so = _build(_LEIDEN_SRC)
+        if so is None:
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+        except OSError:
+            return None
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+        f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+        lib.leiden_cluster.argtypes = [
+            i64p, i32p, f32p, ctypes.c_int64, ctypes.c_double,
+            ctypes.c_uint64, ctypes.c_int64, i32p,
+            ctypes.POINTER(ctypes.c_double),
+        ]
+        lib.leiden_cluster.restype = ctypes.c_int64
+        _leiden_lib = lib
+        return _leiden_lib
+
+
+def leiden_native(indptr, indices, weights, n, resolution, seed, max_levels):
+    """Native Leiden: ``(labels int32 [n], n_communities, quality)``, or
+    None when the native library is unavailable."""
+
+    lib = get_leiden_lib()
+    if lib is None:
+        return None
+    labels = np.empty(n, np.int32)
+    q = ctypes.c_double(0.0)
+    k = lib.leiden_cluster(
+        np.ascontiguousarray(indptr, np.int64),
+        np.ascontiguousarray(indices, np.int32),
+        np.ascontiguousarray(weights, np.float32),
+        n,
+        float(resolution),
+        int(seed) & 0xFFFFFFFFFFFFFFFF,
+        int(max_levels),
+        labels,
+        ctypes.byref(q),
+    )
+    if k < 0:
+        return None
+    return labels, int(k), float(q.value)
 
 
 def csr_to_ell(indptr, indices, data, n_rows, width, rows_padded):

@@ -98,9 +98,13 @@ def csr_transpose_numpy(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """CSR -> CSC of the same logical matrix == CSR of the transpose.
 
-    Counting-sort construction, O(nnz); minor indices within each output row
-    come out sorted, matching nalgebra-sparse invariants.
+    Counting-sort construction, O(nnz) (the native converter for float32
+    values, else scipy's ``csr_tocsc``, which also moves the int64 slot
+    positions of a device-valued matrix); minor indices within each output
+    row come out sorted, matching nalgebra-sparse invariants.
     """
+
+    import scipy.sparse as sp
 
     nnz = len(indices)
     if nnz > 0 and data.dtype == np.float32:
@@ -110,20 +114,12 @@ def csr_transpose_numpy(
         if nat is not None:
             return nat
 
-    counts = np.bincount(indices, minlength=n_cols).astype(np.int64)
-    out_indptr = np.zeros(n_cols + 1, dtype=np.int64)
-    np.cumsum(counts, out=out_indptr[1:])
-    out_indices = np.empty(nnz, dtype=np.int32)
-    out_data = np.empty(nnz, dtype=data.dtype)
-    if nnz:
-        row_of_nnz = np.repeat(
-            np.arange(n_rows, dtype=np.int32), np.diff(indptr).astype(np.int64)
-        )
-        # stable sort by column gives CSC order with sorted row indices
-        order = np.argsort(indices, kind="stable")
-        out_indices[:] = row_of_nnz[order]
-        out_data[:] = data[order]
-    return out_indptr, out_indices, out_data
+    if nnz == 0:
+        return (np.zeros(n_cols + 1, dtype=np.int64), np.empty(0, dtype=np.int32),
+                np.empty(0, dtype=data.dtype))
+    t = sp.csr_matrix((data, indices, indptr), shape=(n_rows, n_cols)).tocsc()
+    return (t.indptr.astype(np.int64), t.indices.astype(np.int32, copy=False),
+            t.data.astype(data.dtype, copy=False))
 
 
 def tiled_split_widths(

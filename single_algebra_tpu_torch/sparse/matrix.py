@@ -57,6 +57,14 @@ def _log1p_fn(v, r, c):
     return torch.log1p(v)
 
 
+def _expm1_fn(v, r, c):
+    # torch.expm1 is within 1 ULP of float64 on the CPU build
+    # (tests/test_torch_feature_selection.py); the card's is measured by
+    # chip_smoke.py's scrna phase (ROADMAP records the precise_math
+    # decision)
+    return torch.expm1(v)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -392,11 +400,10 @@ class SparseMatrix:
     def _slot_positions(self) -> np.ndarray:
         """Flat position of each stored entry (CSR order) in the ELL grid."""
 
-        W = self.ell_width
         indptr = self._h_indptr
-        lines = np.repeat(np.arange(self.n_major, dtype=np.int64), np.diff(indptr))
-        j = np.arange(len(self._h_indices), dtype=np.int64)
-        return lines * W + (j - indptr[lines])
+        # entry j of line r sits at r * W + (j - indptr[r])
+        start = np.arange(self.n_major, dtype=np.int64) * self.ell_width - indptr[:-1]
+        return np.repeat(start, np.diff(indptr)) + np.arange(len(self._h_indices), dtype=np.int64)
 
     def _gather_values(self, pos_indptr, pos_indices, pos, n_lines, fmt, shape):
         """A device-valued matrix whose layout is the CSR ``(pos_indptr,

@@ -310,3 +310,90 @@ def test_cuda_make_mesh_never_repeats_a_card(cuda):
         torch.device("cuda", i) for i in range(count))
     with pytest.raises(RuntimeError, match="CUDA devices"):
         make_mesh(count + 1, device="cuda")
+
+
+# -- the single-cell workflow ----------------------------------------------------
+
+
+@pytest.mark.requires_cuda
+def test_cuda_workflow_defaults_run_on_the_card(cuda):
+    """QC, HVG, connectivities, Leiden, KMeans and UMAP with no device run
+    on the card and agree with the same calls on the CPU: counts exact,
+    the HVG scores within 1e-5, kNN distances within 1e-4, the graph's
+    pattern identical, Leiden
+    (native) finding the 4 blobs, KMeans from the same centers within
+    1e-5, UMAP repeating bit for bit."""
+
+    import single_algebra_tpu_torch as tsat
+    from single_algebra_tpu_torch import neighbors
+    from single_algebra_tpu_torch.models import UMAP, UMAPConfig
+    from single_algebra_tpu_torch.models import kmeans as kmod
+
+    X = clustered_counts(3000, 300, seed=11)
+    m, mc = SparseMatrix.from_scipy(X), SparseMatrix.from_scipy(X, device="cpu")
+    obs, _ = tsat.calculate_qc_metrics(m)
+    cobs, _ = tsat.calculate_qc_metrics(mc)
+    np.testing.assert_array_equal(obs["total_counts"], cobs["total_counts"])
+    norm = m.normalize(m.sum_row(), 1e4, tsat.Direction.ROW).log1p_normalize()
+    cnorm = mc.normalize(mc.sum_row(), 1e4, tsat.Direction.ROW).log1p_normalize()
+    h, ch = (tsat.highly_variable_genes(a, n_top_genes=60) for a in (norm, cnorm))
+    np.testing.assert_allclose(h.dispersions_norm, ch.dispersions_norm, rtol=1e-5, atol=1e-5)
+    x, labels = blobs(400, n_clusters=4, d=12, seed=3)
+    # |x|^2 + |y|^2 - 2 x.y in float32 at |x|^2 ~ 1,700 and d^2 ~ 10: two
+    # devices' GEMMs part by ~1e-5 of d
+    d, _ = neighbors.knn(x, 12)
+    cd, _ = neighbors.knn(x, 12, device="cpu")
+    assert float((d.cpu() - cd).abs().max() / cd.abs().max()) <= 1e-4
+    S = neighbors.connectivities(x, 12)
+    cS = neighbors.connectivities(x, 12, device="cpu")
+    np.testing.assert_array_equal(S.indices, cS.indices)
+    # the smooth-kNN calibration divides distance rounding by sigma: the
+    # weights of two devices' float32 kNN part by up to ~1e-3
+    assert np.abs(S.data - cS.data).max() <= 1e-2
+    lr = tsat.leiden(S, resolution=0.5)
+    assert lr.backend == "native" and lr.n_communities == 4
+    xt = torch.from_numpy(x).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x2, w = kmod._row_sq_norms(xt), torch.ones(len(x), device=cuda)
+    C0 = kmod._plusplus_init(gen, xt, x2, w, 4)
+    tol2 = kmod.KMeans(4)._tol2(xt)
+    C, lab, _, _ = kmod._lloyd(xt, x2, tol2, C0, w, k=4, max_iter=100)
+    xc = xt.cpu()
+    Cc, labc, _, _ = kmod._lloyd(xc, kmod._row_sq_norms(xc), tol2, C0.cpu(), w.cpu(), k=4,
+                                 max_iter=100)
+    np.testing.assert_array_equal(lab.cpu().numpy(), labc.numpy())
+    assert float((C.cpu() - Cc).abs().max() / Cc.abs().max()) <= 1e-5
+    cfg = UMAPConfig(n_epochs=60)
+    Y = UMAP(cfg).fit_transform(x)
+    assert Y.device.type == "cuda" and torch.equal(Y, UMAP(cfg).fit_transform(x))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_ivf_and_umap_epoch_match_the_cpu(cuda):
+    """The IVF index on the card finds the card's exact neighbors (recall
+    at least 0.95, ties aside) and repeats bit for bit; one UMAP epoch on
+    the card is within 1e-4 of max |update| of a float64 CPU epoch with
+    the same draws."""
+
+    from single_algebra_tpu_torch import neighbors
+    from single_algebra_tpu_torch.models import umap as umod
+
+    x, _ = blobs(1500, n_clusters=6, d=10, seed=4)
+    d, i = neighbors.ivf_knn(x, 10, n_lists=40, n_probe=8)
+    assert d.device.type == "cuda"
+    assert torch.equal(i, neighbors.ivf_knn(x, 10, n_lists=40, n_probe=8)[1])
+    ed_, _ = neighbors.knn(x, 10)
+    hits = (d <= ed_[:, -1:] * (1 + 1e-5)).sum(dim=1).clamp(max=10).sum()
+    assert float(hits) / d.numel() >= 0.95
+    S = neighbors.connectivities(x, 10, device="cpu")
+    ed, ed_cpu = umod._edges_of(S, len(x), cuda), umod._edges_of(S, len(x), "cpu")
+    a, b = umod._fit_ab(1.0, 0.1)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    Y = 10 * torch.randn((len(x), 2), generator=gen, device=cuda)
+    active = torch.rand(ed.heads.shape[0], generator=gen, device=cuda) < ed.weights
+    negs = torch.randint(0, len(x), (ed.heads.shape[0], 5), generator=gen, device=cuda)
+    upd = umod._layout_epoch(Y, ed, active, negs, 1.0, a, b) - Y
+    assert torch.equal(upd, umod._layout_epoch(Y, ed, active, negs, 1.0, a, b) - Y)
+    Y64 = Y.cpu().double()
+    upd64 = umod._layout_epoch(Y64, ed_cpu, active.cpu(), negs.cpu(), 1.0, a, b) - Y64
+    assert float((upd.cpu().double() - upd64).abs().max() / upd64.abs().max()) <= 1e-4

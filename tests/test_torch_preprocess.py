@@ -233,3 +233,170 @@ def test_constructors():
     r = random_sparse(30, 20, 0.1, seed=3, device="cpu")
     np.testing.assert_array_equal(r.to_dense(), jrandom_sparse(30, 20, 0.1, seed=3).to_dense())
     assert SparseMatrix.from_scipy(X).device.type == "cuda"  # the default: the card
+
+
+# -- preprocess.py ---------------------------------------------------------------
+
+from single_algebra_tpu import preprocess as jpre  # noqa: E402
+from single_algebra_tpu_torch import preprocess as tpre  # noqa: E402
+
+REL = {np.float32: 1e-5, np.float64: 1e-6}
+
+
+def np_of(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    if hasattr(x, "to_dense"):
+        return np.asarray(x.to_dense())
+    return np.asarray(x)
+
+
+def assert_rel(got, want, rel):
+    got, want = np_of(got), np_of(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * np.abs(want).max())
+
+
+def assert_of_max(got, want, tol=1e-5):
+    got, want = np_of(got), np_of(want)
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def batches(n, seed=0):
+    return np.random.default_rng(seed).choice(["a", "b", "c"], n)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kw", [dict(), dict(target_sum=1e4),
+                                dict(exclude_highly_expressed=True, max_fraction=0.2)])
+def test_normalize_total_matches_jax(dtype, kw):
+    X = counts(n=60, p=40, seed=3, dtype=dtype)
+    tm, jm = both(X, "csr", dtype)
+    out, sf = tpre.normalize_total(tm, **kw)
+    jout, jsf = jpre.normalize_total(jm, **kw)
+    assert_rel(out, jout, REL[dtype])
+    np.testing.assert_allclose(sf, np.asarray(jsf), rtol=1e-12)
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc"])
+@pytest.mark.parametrize("kw", [dict(), dict(log_idf=False),
+                                dict(log_tf=False, log_idf=False, log_tfidf=True)])
+def test_tfidf_matches_jax(fmt, kw):
+    X = counts(seed=4)
+    tm, jm = both(X, fmt)
+    assert_rel(tpre.tfidf(tm, **kw), jpre.tfidf(jm, **kw), 1e-5)
+    with pytest.raises(ValueError, match="log_tfidf"):
+        tpre.tfidf(tm, log_tfidf=True)
+
+
+def test_aggregate_matches_jax():
+    X = counts(seed=5)
+    tm, jm = both(X, "csr")
+    labels = batches(X.shape[0])
+    funcs = ("mean", "sum", "var", "frac_nonzero", "count_nonzero")
+    got = tpre.aggregate(tm, labels, funcs=funcs)
+    want = jpre.aggregate(jm, labels, funcs=funcs)
+    np.testing.assert_array_equal(got["groups"], want["groups"])
+    for f in funcs:
+        assert_rel(got[f], want[f], 1e-6)
+    with pytest.raises(ValueError, match="Unknown aggregate"):
+        tpre.aggregate(tm, labels, funcs=("median",))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("fmt", ["csr", "csc"])
+@pytest.mark.parametrize("zero_center", [True, False])
+@pytest.mark.parametrize("max_value", [None, 2.5])
+def test_scale_sparse_matches_jax(dtype, fmt, zero_center, max_value):
+    X = counts(seed=6, dtype=dtype)
+    tm, jm = both(X, fmt, dtype)
+    got = tpre.scale(tm, zero_center=zero_center, max_value=max_value)
+    want = jpre.scale(jm, zero_center=zero_center, max_value=max_value)
+    assert isinstance(got, SparseMatrix) == (not zero_center)
+    assert_rel(got, want, REL[dtype])
+
+
+@pytest.mark.parametrize("zero_center", [True, False])
+def test_scale_dense_matches_jax(zero_center):
+    x = np.random.default_rng(7).standard_normal((50, 12)).astype(np.float32)
+    x[:, 4] = 1.0  # zero variance: left unscaled
+    got = tpre.scale(x, zero_center=zero_center, max_value=1.5, device="cpu")
+    assert_rel(got, jpre.scale(x, zero_center=zero_center, max_value=1.5), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("sparse_in", [True, False])
+def test_regress_out_matches_jax(dtype, sparse_in):
+    X = counts(seed=8, dtype=dtype)
+    rng = np.random.default_rng(9)
+    cov = np.stack([np.asarray(X.sum(axis=1)).ravel(), rng.random(X.shape[0])], 1)
+    if sparse_in:
+        tX, jX = both(X, "csr", dtype)
+    else:
+        tX = jX = X.toarray()
+    got = tpre.regress_out(tX, cov, device="cpu")
+    want = jpre.regress_out(jX, cov)
+    assert_of_max(got, want)
+    assert_of_max(tpre.regress_out(tX, cov[:, 0], add_intercept=False, device="cpu"),
+                  jpre.regress_out(jX, cov[:, 0], add_intercept=False))
+    with pytest.raises(ValueError, match="covariates rows"):
+        tpre.regress_out(tX, cov[1:], device="cpu")
+
+
+@pytest.mark.parametrize("sparse_in", [True, False])
+@pytest.mark.parametrize("eb", [True, False])
+def test_combat_matches_jax(sparse_in, eb):
+    X = counts(n=90, seed=10)
+    b = batches(X.shape[0], seed=11)
+    X = sp.csr_matrix(X.toarray() + np.where(b == "b", 3.0, 0.0)[:, None]
+                      * (X.toarray() > 0)).astype(np.float32)
+    if sparse_in:
+        tX, jX = both(X, "csr")
+    else:
+        tX = jX = X.toarray()
+    assert_of_max(tpre.combat(tX, b, eb=eb, device="cpu"), jpre.combat(jX, b, eb=eb))
+
+
+def test_combat_single_batch_and_singletons():
+    X = counts(seed=12)
+    tm, _ = both(X, "csr")
+    np.testing.assert_array_equal(np_of(tpre.combat(tm, ["a"] * X.shape[0])), X.toarray())
+    b = np.array(["a"] * (X.shape[0] - 1) + ["z"])
+    with pytest.raises(ValueError, match="singletons"):
+        tpre.combat(tm, b)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kw", [dict(), dict(theta=10.0, clip=3.0), dict(theta=np.inf)])
+def test_pearson_residuals_matches_jax(dtype, kw):
+    X = counts(seed=13, dtype=dtype)
+    tm, jm = both(X, "csc", dtype)
+    assert_of_max(tpre.normalize_pearson_residuals(tm, **kw),
+                  jpre.normalize_pearson_residuals(jm, **kw))
+    with pytest.raises(ValueError, match="theta"):
+        tpre.normalize_pearson_residuals(tm, theta=0.0)
+
+
+def test_subsample_same_draws():
+    X = counts(seed=14)
+    tm, jm = both(X, "csr")
+    for kw in (dict(fraction=0.3, seed=5), dict(n_obs=17, seed=2)):
+        sub, idx = tpre.subsample(tm, **kw)
+        jsub, jidx = jpre.subsample(jm, **kw)
+        np.testing.assert_array_equal(idx, jidx)
+        np.testing.assert_array_equal(sub.to_dense(), np.asarray(jsub.to_dense()))
+    with pytest.raises(ValueError, match="exactly one"):
+        tpre.subsample(tm)
+
+
+def test_downsample_counts_same_draws():
+    X = counts(seed=15)
+    tm, jm = both(X, "csr")
+    got = tpre.downsample_counts(tm, 300, seed=3)
+    want = jpre.downsample_counts(jm, 300, seed=3)
+    assert got.device == torch.device("cpu")
+    np.testing.assert_array_equal(got.to_dense(), np.asarray(want.to_dense()))
+    assert (got.to_dense().sum(axis=1) <= 300).all()
+    with pytest.raises(ValueError, match="integer count"):
+        tpre.downsample_counts(SparseMatrix.from_scipy(X * 0.5, device="cpu"), 10)
