@@ -4,8 +4,9 @@
 Run from the repository root on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py    # ~17 minutes: north star, the preprocessing and masked-PCA
-                             # pipeline, the single-cell workflow, streaming PCA, densified
-                             # path, tiled path, t-SNE, and the mesh beside them
+                             # pipeline, the single-cell workflow and the analysis surface,
+                             # streaming PCA, densified path, tiled path and LSI, t-SNE,
+                             # and the mesh beside them
 
 Phases, one JSON line each:
 
@@ -227,13 +228,59 @@ through the port's entry points):
    graph identical to the single card's and Lloyd from the same centers
    within 1e-5.
 
+The analysis surface (cell 14: the JAX package's modules after the
+workflow), each phase with its seconds, peak memory and the card's name
+and power limit:
+
+27. ``de`` (after ``scrna``, on its log-normalized matrix and Leiden
+   labels: the example's last call): ``rank_genes_groups`` with
+   'wilcoxon', 't-test' and 't-test_overestim_var' (``pts=True``):
+   grouped means and variances within 1e-6 of the largest |truth|, t
+   within 1e-5 of max |t|, z of 64 seeded genes within 1e-4 of max(1,
+   |z|) against float64 tie-averaged ranks (the JAX package's float32
+   rank sums on the same genes reported beside it), each group's top 5
+   the float64 top 5 away from ties, ``pts`` exact, a Wilcoxon block bit
+   for bit on repeat; W, the block size and count; then 'logreg' on the
+   first 100,000 rows, coefficients within 1e-4 of max |W| of a float64
+   run of the same 300 steps from the same start.
+28. ``metrics`` (in ``scrna`` and ``scrna_blobs``): ``silhouette_score`` of
+   5,000 sampled scores vs float64 (1e-5); Moran's I / Geary's C of 64
+   HVG columns over the connectivities vs float64 (1e-5);
+   ``embedding_density`` of the UMAP layout per Leiden group vs float64
+   (1e-5); on the blobs the full silhouette on one card and on
+   ``Mesh((cuda:0,) * 4)`` (1e-6 apart), ARI and NMI vs the smoke's own,
+   and ``lisi`` (5e-3), ``kbet`` (1e-3), ``silhouette_batch`` (1e-5) with
+   mixed and with separated batches against float64 recomputes.
+29. ``analysis`` (in ``scrna``): ``magic`` on the first 50,000 rows, 2,000
+   HVGs and their scores (the densified route; 1e-5 of max vs a float64
+   3-step diffusion), ``scrublet`` on one 10x lane with planted
+   cross-cluster doublets (AUROC >= 0.75, from the JAX package's CPU run
+   of ``tools/scrublet_bar.py``), ``score_genes`` of 50 genes (1e-6);
+   on the blobs ``SpectralClustering(10)`` (ARI >= 0.9, float64
+   eigen-residual <= 1e-4), ``diffmap(S, 15)`` (the same residual, the
+   first eigenvalue 1 within 1e-5, finite pseudotime), ``mnn_correct`` of
+   a planted batch shift (``tests/test_mnn.py``'s bar) and ``ingest``
+   (accuracy >= 0.99).
+30. ``lsi`` (inside ``tiled_path``, after its engine is freed): ``lsi(m,
+   30)`` on cell 2's counts binarized: ``auto`` must take the tiled
+   engine (TF-IDF: hi and lo payloads), every launched kernel shape held
+   against the plain versions on both payloads, the launches added to
+   the kernels line; ``lsi_ev``: singular values within 1e-4 of a float64
+   run with the same sketch.
+31. ``io`` (after ``scrna``): 20,000 of cell 1's cells written as a
+   gzipped 10x mtx directory and read back by ``read_10x_mtx`` to the
+   same CSR on the card; with ``h5py``, also ``write_h5ad`` ->
+   ``read_h5ad`` and ``iter_h5ad_chunks`` (else ``"h5py": null``).
+
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 float32 multiply-adds (2 x stored slots x kp) over 67 TFLOP/s. The
 densify kernel's ``launches`` are those of the north star's cold fit plus
 the streaming phase's (both streams), the mesh Gram fit's, the mesh
 stream's and the scrna phase's masked fit; the tiled kernels' those of
-the cold tiled fit and the mesh tiled fits.
+the cold tiled fit, the ``lsi`` fit and the mesh tiled fits. The float64
+Grams of integer counts are exact: int8 tensor-core products summed in
+float64.
 
 Then, as the last three lines: ``{"kernels": [...]}``, the card's
 ``name, power.limit`` from nvidia-smi, and ``{"ok": true, "device": ...}``.
@@ -288,7 +335,7 @@ SCRNA_HVG, SCRNA_NEIGHBORS, SCRNA_KMEANS = 2_000, 15, 64  # cell 13: examples/sc
 SCRNA_RESOLUTION = 0.5  # Leiden's resolution in the example
 SCRNA_RECALL_QUERIES, SCRNA_F64_ROWS = 20_000, 1_000  # IVF recall queries; float64 kNN rows
 UMAP_EPOCHS, UMAP_REPEAT_EPOCHS = 200, 20  # the fit's epochs; the timed, repeated layout
-ZHENG_ROWS, ZHENG_CHECK_ROWS, ZHENG_SCALE_MAX = N_CELLS, 2_000, 10.0  # recipe_zheng17
+ZHENG_ROWS, ZHENG_CHECK_ROWS, ZHENG_SCALE_MAX = 250_000, 2_000, 10.0  # recipe_zheng17 (rows: the time budget)
 HVG_FAIL = 1e-5  # dispersions_norm vs float64, of the largest |truth|
 RECALL_FAIL, RECALL_TIE = 0.95, 1e-5  # IVF recall@15 vs exact; a tie, relative
 EXACT_KNN_F64_FAIL = 1e-4  # the exact float32 kNN's picks vs float64, of the k-th distance
@@ -298,6 +345,29 @@ UMAP_EPOCH_FAIL = 1e-4  # one card epoch vs float64, of max |update|
 ZHENG_FAIL = 1e-5  # recipe_zheng17's Z vs float64, of max |Z|
 ARI_FAIL = 0.9  # the blobs' clusterings against the planted labels
 KMEANS_MESH_FAIL = 1e-5  # mesh Lloyd vs the single card's, of max |center|
+INT8_GRAM_ROWS, INT8_GRAM_COLS = 16_384, 8_192  # the exact integer Gram's row chunk, column block
+DE_MOMENT_FAIL = 1e-6  # grouped means / variances vs float64, of the largest |truth|
+DE_T_FAIL = 1e-5  # t vs float64, of max |t|
+DE_Z_FAIL, DE_Z_GENES = 1e-4, 64  # Wilcoxon z vs float64 ranks, of max(1, |z|); genes checked
+DE_TOP = 5  # each group's top names held to the float64 ranking
+DE_LOGREG_ROWS, LOGREG_FAIL = 100_000, 1e-4  # logreg's rows; its coefficients vs float64
+METRIC_SIL_ROWS, METRIC_FAIL = 5_000, 1e-5  # cell 13's silhouette sample; metrics vs float64
+MORAN_COLS, DENSITY_GROUP_ROWS = 64, 20_000  # autocorrelation columns; densities checked per group
+MESH_SIL_FAIL = 1e-6  # the mesh silhouette vs the single card's, of the largest |s|
+# LISI of 1,000 rows vs float64 (exact float64 kNN), of the largest: at |x|^2 ~ 5,000 the
+# float32 kNN's d^2 carry ~3e-3 of cancellation and part from float64 at the 90th neighbor
+METRIC_CHECK_ROWS, LISI_FAIL = 1_000, 5e-3
+KBET_K, KBET_FAIL = 25, 1e-3  # kBET's neighbors; its acceptance vs float64 kNN counts
+MAGIC_ROWS, MAGIC_FAIL = 50_000, 1e-5  # magic's rows; vs a float64 diffusion, of max |value|
+SCRUBLET_ROWS, SCRUBLET_RATE = 20_000, 0.06  # one 10x lane; its planted doublet share
+SCRUBLET_AUROC_FAIL = 0.75  # the JAX package's CPU run at 5,000 rows: 0.806 (tools/scrublet_bar.py)
+SCORE_GENES, SCORE_FAIL = 50, 1e-6  # score_genes' signature; vs float64, of max |score|
+EIG_RESIDUAL_FAIL = 1e-4  # spectral / diffmap eigenvectors: float64 ||T v - lambda v||
+DIFFMAP_KRYLOV = 1_200  # diffmap's Krylov dimension: its default 120 leaves the blobs'
+# clustered within-blob modes (0.65-0.67) at residuals ~3e-2
+MNN_SHIFT, INGEST_FAIL = 5.0, 0.99  # the planted batch shift; ingest's accuracy
+LSI_COMPONENTS, LSI_FAIL = 30, 1e-4  # lsi's components; singular values vs a same-sketch f64 run
+IO_ROWS = 20_000  # the io phase's lane
 
 
 def bound(nbytes: float, flops: float = 0.0) -> dict:
@@ -538,13 +608,44 @@ def csr_dense_rows(torch, X, r0: int, r1: int, dtype, device="cuda"):
     return D
 
 
-def f64_gram(torch, X, chunk: int = 4096, device="cuda"):
-    """(G, mu): the dense float64 Gram ``X^T X`` of CSR row chunks and the
-    column means, on the card and independent of the port."""
+def _int8_exact(X) -> bool:
+    """The stored values are integers in [-127, 127] and the width a
+    multiple of 8: the Gram is then exact as int8 products."""
 
+    import numpy as np
+
+    d = X.data
+    return (X.shape[1] % 8 == 0 and d.size > 0 and float(np.abs(d).max()) <= 127
+            and bool(np.all(d == np.round(d))))
+
+
+def f64_gram(torch, X, chunk: int = 4096, device="cuda"):
+    """(G, mu): the float64 Gram ``X^T X`` of CSR row chunks and the column
+    means, on the card and independent of the port. Integer values in
+    [-127, 127] (counts) take the int8 tensor cores: ``torch._int_mm`` of
+    16,384-row chunks gives exact int32 partials (16,384 x 127^2 < 2^31),
+    summed in float64 (exact below 2^53): the exact Gram, ~20x faster than
+    the float64 GEMMs that other values take."""
+
+    import gc
+
+    gc.collect()  # operators the callers dropped, before a [p, p] float64
     n, p = X.shape
     G = torch.zeros((p, p), dtype=torch.float64, device=device)
     colsum = torch.zeros(p, dtype=torch.float64, device=device)
+    if _int8_exact(X):
+        for r0 in range(0, n, INT8_GRAM_ROWS):
+            D = csr_dense_rows(torch, X, r0, min(r0 + INT8_GRAM_ROWS, n), torch.float32, device)
+            colsum += D.sum(dim=0, dtype=torch.float64)
+            rows = D.shape[0]
+            At = torch.zeros((p, rows + (-rows) % 8), dtype=torch.int8, device=device)
+            At[:, :rows] = D.T.to(torch.int8)
+            del D
+            for c0 in range(0, p, INT8_GRAM_COLS):
+                G[:, c0:c0 + INT8_GRAM_COLS] += torch._int_mm(
+                    At, At[c0:c0 + INT8_GRAM_COLS].T).double()
+            del At
+        return G, colsum / n
     for r0 in range(0, n, chunk):
         D = csr_dense_rows(torch, X, r0, min(r0 + chunk, n), torch.float64, device)
         G.addmm_(D.T, D)
@@ -1016,12 +1117,15 @@ def phase_dense_path(torch) -> None:
 
 
 def csr_on_card(torch, M, dtype):
+    """A scipy matrix as a ``torch.sparse_csr_tensor`` of ``dtype`` on the card."""
+
     import numpy as np
 
+    M = M.tocsr()
     return torch.sparse_csr_tensor(
         torch.from_numpy(M.indptr.astype(np.int64)), torch.from_numpy(M.indices.astype(np.int64)),
-        torch.from_numpy(M.data.astype(np.float32)), size=M.shape,
-    ).to(device="cuda", dtype=dtype)
+        torch.from_numpy(M.data), size=M.shape,
+    ).to(device=DEVICE, dtype=dtype)
 
 
 def library_densify_ms(torch, X, slab: int = 8192) -> float:
@@ -1100,8 +1204,9 @@ def _tiled_payload(torch, gen, R, ntiles, wt, ct, *, dtype, frac, dup=False, pad
 
 
 def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, odt,
-                   pad=0, rmv=True) -> None:
-    """Both tiled kernels (spmm alone where ``rmv`` is false) against their
+                   pad=0, rmv=True, spmm=True) -> None:
+    """Both tiled kernels (spmm alone where ``rmv`` is false, rmv alone where
+    ``spmm`` is) against their
     plain versions on one payload with a random operand of dtype ``odt``:
     emits a ``kernel_spmm`` and a ``kernel_rmv`` line, fails above
     KERNEL_REL_FAIL or where a repeated launch differs, and folds the
@@ -1118,7 +1223,7 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
     for phase, fn, plain, width in (
         ("kernel_spmm", tiled_ell_spmm_t, tiled_ell_spmm_t_plain, ntiles * ct),
         ("kernel_rmv", tiled_ell_rmv_t, tiled_ell_rmv_t_plain, R),
-    )[:2 if rmv else 1]:
+    )[0 if spmm else 1:2 if rmv else 1]:
         op = torch.randn((kp, width), generator=gen, device=vals.device).to(odt)
         got = fn(vals, ids, op, **kw)
         torch.cuda.synchronize()
@@ -1243,8 +1348,8 @@ class Csr64Operator:
 
 def phase_tiled_path(torch, kernel_result: dict) -> dict:
     """The tiled engine's path once, through the user-facing entry points;
-    -> the kernels' launch counts in the cold fit, and in the mesh tiled
-    fits on the same matrix. The full-size kernel comparisons on the
+    -> the kernels' launch counts in the cold fit and ``lsi``'s, and in the
+    mesh tiled fits on the same matrix. The full-size kernel comparisons on the
     engine's payload and on a mesh slab's add to ``kernel_result``."""
 
     import numpy as np
@@ -1350,6 +1455,8 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     mu = torch.from_numpy(col_sums / n).to(m.device)
     del m
     torch.cuda.empty_cache()
+    lsi_run = timed("lsi", phase_lsi, torch, X, kernel_result)
+    launches = {k: launches[k] + lsi_run["launches"][k] for k in launches}
     t0 = time.perf_counter()
     ref_op = CenteredOperator(Csr64Operator(torch, X, "cuda"), mu)
     res = randomized_svd(ref_op, k, 10, 7, PowerIterationNormalizer.QR, omega=omega)
@@ -1359,7 +1466,8 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     torch.cuda.empty_cache()
     same_err = float(np.abs(ev - ev_same).max() / ev_same[0])
     twins = tiled_lanczos_f64_twins(torch, ref_op.base, lanczos, k)
-    del ref_op
+    lsi_f64(torch, ref_op.base, X, lsi_run)
+    del ref_op, lsi_run
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1775,17 +1883,21 @@ def phase_pipeline(torch, m) -> dict:
          gram_pass_densify_launches=gram_launches, densify_f32_all_slabs_s=densify_s,
          peak_alloc_gb=peak / 1e9, T_shape=list(T.shape))
 
-    # bars: the stored values against a float64 recompute from the counts
+    # bars: the stored values against a float64 recompute from the counts,
+    # on the card (the row sums are exact integers in float64 in any order)
     t0 = time.perf_counter()
     vals = Xl._csr_data_host()
-    row_of = np.repeat(np.arange(n, dtype=np.int64), np.diff(m._h_indptr))
-    c64 = m._h_data.astype(np.float64)
-    rs = np.bincount(row_of, c64, n)
-    fac = (NORM_TARGET / np.where(rs > 0, rs, 1.0))[row_of]
-    v64 = np.log1p(np.where(rs[row_of] > 0, c64 * fac, c64))
-    del row_of, c64, fac
-    value_err = float((np.abs(vals - v64) / np.abs(v64)).max())
-    del v64
+    dev = torch.device(DEVICE)
+    c64 = torch.from_numpy(m._h_data).to(dev).double()
+    row_of = torch.repeat_interleave(torch.arange(n, device=dev),
+                                     torch.from_numpy(np.diff(m._h_indptr)).to(dev))
+    rs = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(0, row_of, c64)[row_of]
+    v64 = torch.log1p(torch.where(rs > 0, c64 * (NORM_TARGET / torch.where(rs > 0, rs, 1.0)),
+                                  c64))
+    del row_of, c64, rs
+    got = torch.from_numpy(vals).to(dev).double()
+    value_err = float(((got - v64).abs() / v64.abs()).max())
+    del v64, got
     recompute_s = time.perf_counter() - t0
     Xl64 = sp.csr_matrix((vals.astype(np.float64), m._h_indices, m._h_indptr), shape=(n, p))
     t0 = time.perf_counter()
@@ -1990,30 +2102,36 @@ def make_blobs(n, d=50, nc=10, seed=0):
     return x, labels
 
 
-def silhouette_on_card(torch, y, labels, sample: int, seed: int = 0) -> float:
-    """Mean silhouette of ``sample`` points drawn without replacement
-    (numpy seed), against their labels, in float64 on the card: a = mean
-    distance to the own cluster's other points, b = the least mean
-    distance to another cluster, s = (b - a) / max(a, b) (0 for a point
-    alone in its cluster)."""
+def _sil64(torch, Y, lab):
+    """Float64 silhouette values of the rows of ``Y`` against integer
+    labels ``lab`` (all pairs): a = mean distance to the own cluster's
+    other points, b = the least mean distance to another cluster, s = (b -
+    a) / max(a, b) (0 for a point alone in its cluster)."""
 
-    import numpy as np
-
-    idx = np.random.default_rng(seed).choice(len(labels), sample, replace=False)
-    Y = y[torch.from_numpy(idx).to(y.device)].double()
-    lab = torch.from_numpy(labels[idx].astype(np.int64)).to(y.device)
+    Y = Y.double()
     sq = (Y * Y).sum(dim=1)
     D = (sq[:, None] + sq[None, :] - 2.0 * (Y @ Y.T)).clamp_(min=0.0).sqrt_()
     D.fill_diagonal_(0.0)
-    onehot = torch.nn.functional.one_hot(lab, int(labels.max()) + 1).double()
+    onehot = torch.nn.functional.one_hot(lab, int(lab.max()) + 1).double()
     sums, counts = D @ onehot, onehot.sum(dim=0)
     own = counts[lab] - 1
     a = sums.gather(1, lab[:, None])[:, 0] / own.clamp(min=1)
     other = (sums / counts.clamp(min=1)).scatter_(1, lab[:, None], float("inf"))
     other[:, counts == 0] = float("inf")
     b = other.min(dim=1).values
-    s = torch.where(own > 0, (b - a) / torch.maximum(a, b), torch.zeros_like(a))
-    return float(s.mean())
+    return torch.where(own > 0, (b - a) / torch.maximum(a, b), torch.zeros_like(a))
+
+
+def silhouette_on_card(torch, y, labels, sample: int, seed: int = 0) -> float:
+    """Mean silhouette of ``sample`` points drawn without replacement
+    (numpy seed), against their labels, in float64 on the card
+    (``_sil64``)."""
+
+    import numpy as np
+
+    idx = np.random.default_rng(seed).choice(len(labels), sample, replace=False)
+    return float(_sil64(torch, y[torch.from_numpy(idx).to(y.device)],
+                        torch.from_numpy(labels[idx].astype(np.int64)).to(y.device)).mean())
 
 
 def phase_tsne(torch) -> None:
@@ -2410,7 +2528,9 @@ def phase_scrna(torch, m, ctx: dict, held_widths) -> int:
     modularity within 1e-6; one UMAP epoch within 1e-4 of max |update| of
     a float64 CPU recompute with the same draws, bit for bit on repeat;
     Z on 2,000 rows within 1e-5 of max |Z| of a float64 host recompute.
-    -> the densify launches of the masked fit."""
+    -> the densify launches of the masked fit, and what the analysis
+    phases reuse: the matrices, scores, graph, Leiden labels, layout and
+    HVG mask."""
 
     import numpy as np
 
@@ -2670,7 +2790,7 @@ def phase_scrna(torch, m, ctx: dict, held_widths) -> int:
         epochs=UMAP_EPOCHS, edges=int(ed.heads.shape[0]),
         ms_per_epoch=repeat_s / UMAP_REPEAT_EPOCHS * 1e3,
         silhouette_planted=silhouette_on_card(torch, Y, planted, SIL_SAMPLE))
-    del um, ed, Y, E, upd, upd64
+    del um, ed, upd, upd64
     torch.cuda.empty_cache()
 
     # 9. recipe_zheng17 on the counts
@@ -2695,17 +2815,18 @@ def phase_scrna(torch, m, ctx: dict, held_widths) -> int:
          card=card())
     if failed:
         raise AssertionError(f"scrna: bars not met: {failed}")
-    return launches
+    return launches, dict(Xl=Xl, Xl64=Xl64, E=E, Y=Y, S=S, labels=lr.labels,
+                          hvg_mask=hvg.mask)
 
 
-def phase_scrna_blobs(torch) -> None:
+def phase_scrna_blobs(torch) -> dict:
     """Cell 13 on the t-SNE phase's blobs (50,000 x 50, 10 clusters): exact
     ``connectivities`` -> ``leiden``, ``KMeans(10, n_init=3)`` and ``UMAP`` against
     the planted labels (ARI >= 0.9, ARI >= 0.9, silhouette of 5,000
     sampled points >= 0.7), then the ``mesh=`` branches on
     ``Mesh((cuda:0,) * 4)``: the graph identical to the single card's,
     KMeans from the same centers within 1e-5 (of the largest |center|),
-    the same labels."""
+    the same labels. -> the blobs, their graph and Leiden labels."""
 
     import numpy as np
 
@@ -2766,6 +2887,911 @@ def phase_scrna_blobs(torch) -> None:
          steps_s=steps, checks=checks, card=card())
     if failed:
         raise AssertionError(f"scrna blobs: bars not met: {failed}")
+    return dict(x=x, labels=labels, S=S, leiden=lr.labels)
+
+
+def planted_doublets(X, rows: int, rate: float, seed: int, n_clusters: int = 64):
+    """One 10x lane of ``X``'s cells with planted doublets: ``rows`` rows
+    drawn without replacement (numpy seed), the first ``rate`` share of
+    them replaced by its sum with a drawn cell of another generator
+    cluster (``cluster_counts_big`` lays its clusters out in equal row
+    blocks), the rows then shuffled. -> (scipy CSR [rows, p] float32,
+    is_doublet [rows] bool)."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = X.shape[0]
+    sizes = np.full(n_clusters, n // n_clusters)
+    sizes[: n % n_clusters] += 1
+    cluster = np.repeat(np.arange(n_clusters), sizes)
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(n, rows, replace=False)
+    n_doub = int(round(rate * rows))
+    a = pick[:n_doub]
+    b = rng.choice(n, n_doub)
+    same = cluster[a] == cluster[b]
+    while same.any():
+        b[same] = rng.choice(n, int(same.sum()))
+        same = cluster[a] == cluster[b]
+    out = sp.vstack([X[a] + X[b], X[pick[n_doub:]]]).tocsr().astype(np.float32)
+    is_doublet = np.arange(rows) < n_doub
+    perm = rng.permutation(rows)
+    return out[perm], is_doublet[perm]
+
+
+def auroc(scores, truth) -> float:
+    """Area under the ROC curve of ``scores`` for the boolean ``truth``
+    (tie-averaged ranks)."""
+
+    from scipy.stats import rankdata
+
+    r = rankdata(scores)
+    n1, n0 = int(truth.sum()), int((~truth).sum())
+    return float((r[truth].sum() - n1 * (n1 + 1) / 2) / (n1 * n0))
+
+
+def nmi64(a, b) -> float:
+    """Normalized mutual information (arithmetic mean), float64 host."""
+
+    import numpy as np
+
+    _, ia = np.unique(a, return_inverse=True)
+    _, ib = np.unique(b, return_inverse=True)
+    C = np.zeros((ia.max() + 1, ib.max() + 1))
+    np.add.at(C, (ia, ib), 1.0)
+    P = C / C.sum()
+    pa, pb = P.sum(axis=1), P.sum(axis=0)
+    nz = P > 0
+    mi = float((P[nz] * np.log(P[nz] / np.outer(pa, pb)[nz])).sum())
+    ha = float(-(pa[pa > 0] * np.log(pa[pa > 0])).sum())
+    hb = float(-(pb[pb > 0] * np.log(pb[pb > 0])).sum())
+    return mi / ((ha + hb) / 2)
+
+
+def _entries_on_card(torch, M):
+    """(rows, cols, float64 values) of a host CSR's stored entries, on the card."""
+
+    import numpy as np
+
+    device = DEVICE
+    rows = torch.repeat_interleave(torch.arange(M.shape[0], device=device),
+                                   torch.from_numpy(np.diff(M.indptr)).to(device))
+    return (rows, torch.from_numpy(M.indices.astype(np.int64)).to(device),
+            torch.from_numpy(M.data).to(device).double())
+
+
+def _ranks64(torch, x):
+    """1-based tie-averaged ranks of each row of the float64 ``x`` and the
+    tie term sum(t^3 - t) per row, by ``unique_consecutive`` of the sorted
+    row (an independent route from the port's scans)."""
+
+    ranks = torch.empty_like(x)
+    ties = torch.empty(x.shape[0], dtype=torch.float64, device=x.device)
+    for i in range(x.shape[0]):
+        s, order = torch.sort(x[i])
+        _, counts = torch.unique_consecutive(s, return_counts=True)
+        c = counts.double()
+        start = torch.cumsum(c, 0) - c
+        ranks[i, order] = torch.repeat_interleave(start + (c + 1.0) / 2.0, counts)
+        ties[i] = (c * c * c - c).sum()
+    return ranks, ties
+
+
+def _rest_t64(sums, sumsq, sizes, i, overestim: bool):
+    """Welch t of group ``i`` against the rest from float64 grouped sums
+    (the definition: moments of the group's cells and of all others)."""
+
+    import numpy as np
+
+    n1, n2 = sizes[i], sizes.sum() - sizes[i]
+    m1 = sums[:, i] / n1
+    v1 = (sumsq[:, i] - sums[:, i] * m1) / max(n1 - 1, 1)
+    s2, q2 = sums.sum(axis=1) - sums[:, i], sumsq.sum(axis=1) - sumsq[:, i]
+    m2 = s2 / n2
+    v2 = np.maximum((q2 - s2 * m2) / max(n2 - 1, 1), 0.0)
+    d = np.sqrt(np.maximum(v1, 0.0) / n1 + v2 / (n1 if overestim else n2))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where(d > 0, (m1 - m2) / np.where(d > 0, d, 1.0), 0.0)
+
+
+def _by_gene(res, g, field="scores"):
+    """A ``DEResult`` column back in gene order."""
+
+    import numpy as np
+
+    out = np.empty(len(res.names[g]))
+    out[np.asarray(res.names[g], np.int64)] = getattr(res, field)[g]
+    return out
+
+
+def phase_de(torch, sc: dict) -> None:
+    """The example's last step (``examples/scrna_pipeline.py``):
+    ``rank_genes_groups`` on the pipeline's log-normalized 1M x 30k matrix
+    and the ``scrna`` phase's Leiden labels, with 'wilcoxon', 't-test' and
+    't-test_overestim_var', ``pts=True``; then 'logreg' on the first
+    100,000 rows. Bars (float64 truths reduced on the card from the host
+    CSR values): the grouped means and variances within 1e-6 of the
+    largest |truth|; t within 1e-5 of max |t|; Wilcoxon z of 64 seeded
+    genes over every group within 1e-4 of max(1, |z|) against float64
+    tie-averaged ranks; each group's top 5 names the float64 top 5
+    wherever its 5th and 6th t are further apart than the t bar; ``pts``
+    exact; a Wilcoxon block bit for bit on repeat; the logreg
+    coefficients within 1e-4 of max |W| of a float64 run of the same 300
+    steps from the same start."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import de
+
+    Xl, Xl64, labels = sc["Xl"], sc["Xl64"], sc["labels"]
+    n, p = Xl.shape
+    dev = torch.device(DEVICE)
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        out, steps[name] = _synced(torch, fn)
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    names, codes = Xl._batch_codes(list(labels), n, "row")
+    G = len(names)
+    sizes64 = np.bincount(codes, minlength=G).astype(np.float64)
+    torch.cuda.reset_peak_memory_stats()
+
+    # float64 truths: grouped sums, sums of squares and expressing counts
+    t0 = time.perf_counter()
+    rows_t, cols_t, v64 = _entries_on_card(torch, Xl64)
+    key = cols_t * G + torch.from_numpy(codes).to(dev)[rows_t]
+    del rows_t
+    sums = torch.zeros(p * G, dtype=torch.float64, device=dev).index_add_(0, key, v64)
+    sumsq = torch.zeros(p * G, dtype=torch.float64, device=dev).index_add_(0, key, v64 * v64)
+    cnt = torch.zeros(p * G, dtype=torch.float64, device=dev).index_add_(
+        0, key, torch.ones_like(v64))  # stored entries, as pts counts them
+    sums, sumsq, cnt = (t.view(p, G).cpu().numpy() for t in (sums, sumsq, cnt))
+    del key, v64, cols_t
+    truth_s = time.perf_counter() - t0
+
+    # grouped moments
+    sizes, mean, var = step("moments", lambda: de._full_moments(Xl, codes, G))
+    mean64 = sums / sizes64[None, :]
+    var64 = np.maximum((sumsq - sums * mean64) / np.maximum(sizes64 - 1, 1)[None, :], 0.0)
+    m_err = float(np.abs(mean - mean64).max() / np.abs(mean64).max())
+    v_err = float(np.abs(var - var64).max() / np.abs(var64).max())
+    bar("moments", m_err <= DE_MOMENT_FAIL and v_err <= DE_MOMENT_FAIL
+        and np.array_equal(sizes, sizes64), mean_rel_err=m_err, var_rel_err=v_err,
+        fail_above=DE_MOMENT_FAIL, truth_s=truth_s)
+
+    # t-tests: scores per gene, the top 5 away from ties, pts exact
+    for method in ("t-test", "t-test_overestim_var"):
+        res = step(method, lambda: de.rank_genes_groups(Xl, labels, method=method, pts=True))
+        t_err, top_checked, top_off, pts_ok = 0.0, 0, 0, True
+        for i, g in enumerate(names):
+            t64 = _rest_t64(sums, sumsq, sizes64, i, method == "t-test_overestim_var")
+            scale = float(np.abs(t64).max())
+            t_err = max(t_err, float(np.abs(_by_gene(res, g) - t64).max() / scale))
+            order = np.argsort(-t64, kind="stable")
+            if t64[order[DE_TOP - 1]] - t64[order[DE_TOP]] > DE_T_FAIL * scale:
+                top_checked += 1
+                top_off += set(res.names[g][:DE_TOP].tolist()) != set(order[:DE_TOP].tolist())
+            frac_in = cnt[:, i] / sizes64[i]
+            frac_out = (cnt.sum(axis=1) - cnt[:, i]) / (n - sizes64[i])
+            pts_ok &= (np.array_equal(_by_gene(res, g, "pts"), frac_in)
+                       and np.array_equal(_by_gene(res, g, "pts_rest"), frac_out))
+        bar(method, t_err <= DE_T_FAIL and top_off == 0 and pts_ok, t_rel_err=t_err,
+            fail_above=DE_T_FAIL, top5_groups_checked=top_checked, top5_mismatches=top_off,
+            pts_exact=bool(pts_ok))
+        del res
+
+    # wilcoxon: the whole ranking, then z of 64 seeded genes against
+    # float64 tie-averaged ranks on the card
+    mc = Xl._layout_for("col")
+    W = mc.ell_width
+    block = de._wilcoxon_block(W)
+    res = step("wilcoxon", lambda: de.rank_genes_groups(Xl, labels, method="wilcoxon"))
+    genes = np.sort(np.random.default_rng(12).choice(p, DE_Z_GENES, replace=False))
+    t0 = time.perf_counter()
+    sub = Xl64[:, genes].tocsc()
+    dense = torch.zeros((DE_Z_GENES, n), dtype=torch.float64, device=dev)
+    for j in range(DE_Z_GENES):
+        lo, hi = sub.indptr[j], sub.indptr[j + 1]
+        dense[j, torch.from_numpy(sub.indices[lo:hi].astype(np.int64)).to(dev)] = \
+            torch.from_numpy(sub.data[lo:hi]).to(dev)
+    ranks, ties = _ranks64(torch, dense)
+    del dense
+    codes_t = torch.from_numpy(codes).to(dev)
+    rsum = torch.zeros((DE_Z_GENES, G), dtype=torch.float64, device=dev).index_add_(
+        1, codes_t, ranks).cpu().numpy()
+    del ranks
+    ties = ties.cpu().numpy()
+    n1 = sizes64[None, :]
+    sd = np.sqrt(n1 * (n - n1) / 12.0 * ((n + 1.0) - ties[:, None] / (n * (n - 1.0))))
+    z64 = (rsum - n1 * (n + 1.0) / 2.0) / sd
+    z_truth_s = time.perf_counter() - t0
+    zp = np.stack([_by_gene(res, g)[genes] for g in names], axis=1)
+    z_err = float((np.abs(zp - z64) / np.maximum(1.0, np.abs(z64))).max())
+    # the JAX package's arithmetic (rank sums in the matrix dtype) on the
+    # same genes, for the record
+    mask, cmap, outcols = de._wilcoxon_plans(codes, list(range(G)), None, G)[0]
+    args = (torch.as_tensor(mask, device=dev), torch.as_tensor(cmap, device=dev),
+            torch.as_tensor(sizes64, device=dev), n, len(outcols))
+    gi = torch.from_numpy(genes).to(dev)
+    rs32, tt32 = de._rank_block_sparse(mc.ell_data[gi], mc.ell_ids[gi], mc.row_nnz[gi], *args,
+                                       acc=torch.float32)
+    sd32 = np.sqrt(n1 * (n - n1) / 12.0 * ((n + 1.0) - tt32.double().cpu().numpy()[:, None]
+                                           / (n * (n - 1.0))))
+    z32 = (rs32.double().cpu().numpy() - n1 * (n + 1.0) / 2.0) / sd32
+    z32_err = float((np.abs(z32 - z64) / np.maximum(1.0, np.abs(z64))).max())
+    del rs32, tt32
+    first = [de._rank_block_sparse(mc.ell_data[:block], mc.ell_ids[:block], mc.row_nnz[:block],
+                                   *args) for _ in range(2)]
+    repeat_equal = all(bool(torch.equal(a, b)) for a, b in zip(*first))
+    del first, res
+    bar("wilcoxon", z_err <= DE_Z_FAIL and repeat_equal, z_rel_err=z_err, fail_above=DE_Z_FAIL,
+        genes=DE_Z_GENES, groups=G, truth_s=z_truth_s, block_bit_identical=repeat_equal,
+        z_rel_err_float32_rank_sums=z32_err, W=int(W), block=int(block),
+        blocks=-(-p // block))
+
+    # logreg on the first rows, against float64 Nesterov steps from the same start
+    r = DE_LOGREG_ROWS
+    sub_m = Xl.select_rows(np.arange(r))
+    sub_labels = labels[:r]
+    res = step("logreg", lambda: de.rank_genes_groups(sub_m, sub_labels, method="logreg"))
+    t0 = time.perf_counter()
+    sub_names, sub_codes = sub_m._batch_codes(list(sub_labels), r, "row")
+    Gs = len(sub_names)
+    X64 = Xl64[:r].tocsr()
+    A, At = csr_on_card(torch, X64, torch.float64), csr_on_card(torch, X64.T, torch.float64)
+    Y = torch.nn.functional.one_hot(torch.from_numpy(sub_codes).to(dev), Gs).double()
+    Wt = de._logreg_w0(p, Gs, 0, dev).double()
+    b = torch.zeros(Gs, dtype=torch.float64, device=dev)
+    vW, vb = torch.zeros_like(Wt), torch.zeros_like(b)
+    for _ in range(300):
+        Wq, bq = Wt + 0.9 * vW, b + 0.9 * vb
+        logits = A @ Wq + bq[None, :]
+        P = torch.softmax(logits, dim=1)
+        D = (P - Y) / r
+        gW, gb = At @ D + 1e-4 * Wq, D.sum(dim=0)
+        vW, vb = 0.9 * vW - gW, 0.9 * vb - gb
+        Wt, b = Wt + vW, b + vb
+    W64 = Wt.cpu().numpy()
+    del A, At, Y, Wt, vW, P, D
+    logreg_truth_s = time.perf_counter() - t0
+    Wp = np.stack([_by_gene(res, g) for g in sub_names], axis=1)
+    w_err = float(np.abs(Wp - W64).max() / np.abs(W64).max())
+    bar("logreg", w_err <= LOGREG_FAIL and np.isnan(res.pvals[sub_names[0]]).all(),
+        coef_rel_err=w_err, fail_above=LOGREG_FAIL, rows=r, groups=Gs, steps=300,
+        truth_s=logreg_truth_s)
+    del res, sub_m
+    torch.cuda.empty_cache()
+    emit("de", n=n, p=p, groups=G, steps_s=steps, checks=checks,
+         peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+    if failed:
+        raise AssertionError(f"de: bars not met: {failed}")
+
+
+def phase_metrics_scrna(torch, sc: dict) -> None:
+    """``metrics`` on cell 13's outputs: ``silhouette_score`` of 5,000
+    sampled rows of the masked PCA scores against the Leiden labels
+    (within 1e-5 of the float64 ``silhouette_on_card``); ``morans_i`` /
+    ``gearys_c`` of the first 64 HVG columns over the connectivities
+    (within 1e-5 of the largest float64 value); ``embedding_density`` of
+    the UMAP layout within the Leiden groups (whole groups of at most
+    20,000 cells recomputed in float64: 1e-5)."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import metrics
+
+    E, labels, S, Y, Xl64 = sc["E"], sc["labels"], sc["S"], sc["Y"], sc["Xl64"]
+    n = E.shape[0]
+    dev = torch.device(DEVICE)
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        out, steps[name] = _synced(torch, fn)
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    idx = np.random.default_rng(0).choice(n, METRIC_SIL_ROWS, replace=False)
+    it = torch.from_numpy(idx).to(dev)
+    sil = step("silhouette_score", lambda: metrics.silhouette_score(E[it], labels[idx]))
+    sil64 = silhouette_on_card(torch, E, labels, METRIC_SIL_ROWS, seed=0)
+    bar("silhouette", abs(sil - sil64) <= METRIC_FAIL, silhouette=sil, silhouette_f64=sil64,
+        fail_above=METRIC_FAIL, rows=METRIC_SIL_ROWS)
+
+    cols = np.where(sc["hvg_mask"])[0][:MORAN_COLS]
+    vals = Xl64[:, cols].toarray().astype(np.float32)
+    Sm = _graph_on_card(S)
+    mi = step("morans_i", lambda: metrics.morans_i(Sm, vals))
+    gc = step("gearys_c", lambda: metrics.gearys_c(Sm, vals))
+    W = csr_on_card(torch, S, torch.float64)
+    x = torch.from_numpy(vals).to(dev).double()
+    xc = x - x.mean(dim=0, keepdim=True)
+    wx = W @ xc
+    deg = torch.from_numpy(np.asarray(S.sum(axis=1)).ravel()).to(dev).double()
+    w_sum = float(S.sum())
+    den = (xc * xc).sum(dim=0)
+    num_m = (xc * wx).sum(dim=0)
+    mi64 = ((n / w_sum) * num_m / den).cpu().numpy()
+    gc64 = (((n - 1.0) / (2.0 * w_sum)) * 2.0 * ((xc * xc * deg[:, None]).sum(dim=0) - num_m)
+            / den).cpu().numpy()
+    del W, x, xc, wx
+    mi_err = float(np.abs(mi - mi64).max() / np.abs(mi64).max())
+    gc_err = float(np.abs(gc - gc64).max() / np.abs(gc64).max())
+    bar("autocorrelation", mi_err <= METRIC_FAIL and gc_err <= METRIC_FAIL,
+        morans_i_rel_err=mi_err, gearys_c_rel_err=gc_err, fail_above=METRIC_FAIL,
+        columns=len(cols), morans_i_range=[float(mi.min()), float(mi.max())])
+
+    dens = step("embedding_density", lambda: metrics.embedding_density(Y, groups=labels))
+    groups, counts = np.unique(labels, return_counts=True)
+    small = groups[(counts >= 2) & (counts <= DENSITY_GROUP_ROWS)][:3]
+    d_err = 0.0
+    for g in small:
+        sel = np.where(labels == g)[0]
+        Yg = Y[torch.from_numpy(sel).to(dev)].double()
+        m_ = len(sel)
+        h = float(m_ ** (-1.0 / 6.0) * np.std(Yg.cpu().numpy()))
+        sq = (Yg * Yg).sum(dim=1)
+        kde = torch.exp(-(sq[:, None] + sq[None, :] - 2.0 * (Yg @ Yg.T)).clamp_(min=0.0)
+                        / (2.0 * h * h)).mean(dim=1).cpu().numpy()
+        scaled = (kde - kde.min()) / (kde.max() - kde.min())
+        d_err = max(d_err, float(np.abs(dens[sel] - scaled).max()))
+    bar("embedding_density", d_err <= METRIC_FAIL and bool(np.isfinite(dens).all()),
+        max_abs_err=d_err, fail_above=METRIC_FAIL, groups_checked=[int(g) for g in small],
+        groups=len(groups))
+    emit("metrics", case="scrna", n=n, steps_s=steps, checks=checks, card=card())
+    if failed:
+        raise AssertionError(f"metrics (scrna): bars not met: {failed}")
+
+
+def _graph_on_card(S):
+    """A scipy graph as the port's float32 matrix on the card."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import SparseMatrix
+
+    return SparseMatrix.from_scipy(S.astype(np.float32), device=DEVICE)
+
+
+def _lisi64(torch, X, labels, rows, perplexity: float):
+    """Float64 LISI of the sampled ``rows``: exact kNN (k = 3 perplexity,
+    self excluded) over all of X, a 100-step bisection of each row's
+    Gaussian precision to the perplexity, 1 / sum of squared label masses."""
+
+    import numpy as np
+
+    k = int(round(3 * perplexity))
+    X64 = X.double()
+    sq = (X64 * X64).sum(dim=1)
+    q = X64[rows]
+    d2 = sq[rows, None] - 2.0 * (q @ X64.T) + sq[None, :]
+    d2.scatter_(1, rows[:, None], float("inf"))
+    nd, ni = torch.topk(-d2, k, dim=1)
+    d2k = (-nd).clamp(min=0.0)
+    lo = torch.zeros(len(rows), dtype=torch.float64, device=X.device)
+    hi = torch.full_like(lo, 1e6)
+    target = np.log(perplexity)
+    for _ in range(100):
+        beta = (lo + hi) / 2
+        w = torch.exp(-(d2k - d2k[:, :1]) * beta[:, None])
+        pr = w / w.sum(dim=1, keepdim=True)
+        ent = -(pr * torch.log(pr.clamp(min=1e-300))).sum(dim=1)
+        hi = torch.where(ent < target, beta, hi)
+        lo = torch.where(ent < target, lo, beta)
+    lab = torch.from_numpy(np.unique(labels, return_inverse=True)[1]).to(X.device)[ni]
+    mass = torch.zeros((len(rows), int(lab.max()) + 1), dtype=torch.float64,
+                       device=X.device).scatter_add_(1, lab, pr)
+    return (1.0 / (mass * mass).sum(dim=1)).cpu().numpy()
+
+
+def phase_metrics_blobs(torch, blobs: dict) -> None:
+    """``metrics`` on the t-SNE phase's 50,000 blobs: the full silhouette,
+    single card and ``mesh=Mesh((cuda:0,) * 4)`` (within 1e-6 of each
+    other), and ``silhouette_score`` of 5,000 sampled points within 1e-5
+    of the float64 score of the same points; ARI and NMI of the Leiden labels against the
+    planted ones (against the smoke's own ``ari`` and a float64 NMI,
+    1e-12); ``lisi``, ``kbet`` and ``silhouette_batch`` with seeded mixed
+    batches and with batches split in space inside each blob, against
+    float64 recomputes: LISI of 1,000 sampled rows (5e-3 of the largest:
+    the float32 kNN parts from float64 at near ties of the 90th neighbor),
+    kBET's acceptance over all rows from float64 kNN counts (1e-3), the
+    batch silhouette over all rows (1e-5)."""
+
+    import numpy as np
+    from scipy.stats import chi2
+
+    from single_algebra_tpu_torch import metrics
+
+    x, labels, leiden_labels = blobs["x"], blobs["labels"], blobs["leiden"]
+    xt = torch.from_numpy(x).to(DEVICE)
+    n = x.shape[0]
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        out, steps[name] = _synced(torch, fn)
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    single = step("silhouette", lambda: metrics.silhouette_samples(xt, labels))
+    mesh = card_mesh(torch)
+    meshed = step("silhouette_mesh", lambda: metrics.silhouette_samples(xt, labels, mesh=mesh))
+    mesh_err = float((meshed - single).abs().max() / single.abs().max())
+    idx = np.random.default_rng(0).choice(n, SIL_SAMPLE, replace=False)
+    s64 = _sil64(torch, xt[torch.from_numpy(idx).to(xt.device)],
+                 torch.from_numpy(labels[idx].astype(np.int64)).to(xt.device))
+    # the sample's own silhouette score (its clusters are the sampled points)
+    sampled = metrics.silhouette_score(x[idx], labels[idx])
+    s_err = abs(sampled - float(s64.mean()))
+    bar("silhouette", mesh_err <= MESH_SIL_FAIL and s_err <= METRIC_FAIL,
+        mesh_rel_err=mesh_err, mesh_fail_above=MESH_SIL_FAIL, sample_score_f64_err=s_err,
+        fail_above=METRIC_FAIL, mean=float(single.mean()), entries=mesh.size)
+
+    a_p, a_s = metrics.adjusted_rand_index(leiden_labels, labels), ari(leiden_labels, labels)
+    n_p, n_s = metrics.normalized_mutual_info(leiden_labels, labels), nmi64(leiden_labels, labels)
+    bar("ari_nmi", abs(a_p - a_s) <= 1e-12 and abs(n_p - n_s) <= 1e-12, ari=a_p, ari_smoke=a_s,
+        nmi=n_p, nmi_f64=n_s)
+
+    rng = np.random.default_rng(10)
+    mixed = rng.integers(0, 2, n)
+    split = np.zeros(n, np.int64)
+    for c in np.unique(labels):
+        sel = labels == c
+        split[sel] = x[sel, 0] > np.median(x[sel, 0])
+    rows = torch.from_numpy(np.sort(rng.choice(n, METRIC_CHECK_ROWS, replace=False))).to(xt.device)
+    x64 = xt.double()
+    sq = (x64 * x64).sum(dim=1)
+    knn_ids = []
+    for r0 in range(0, n, 4096):
+        d2 = sq[r0:r0 + 4096, None] - 2.0 * (x64[r0:r0 + 4096] @ x64.T) + sq[None, :]
+        ar = torch.arange(r0, min(r0 + 4096, n), device=xt.device)
+        d2[ar - r0, ar] = float("inf")
+        knn_ids.append(torch.topk(-d2, KBET_K, dim=1).indices)
+    knn_ids = torch.cat(knn_ids)
+    del x64, sq
+    for name, batch in (("mixed", mixed), ("separated", split)):
+        li = step(f"lisi_{name}", lambda: metrics.lisi(xt, batch))
+        li64 = _lisi64(torch, xt, batch, rows, 30.0)
+        l_err = float(np.abs(li[rows.cpu().numpy()] - li64).max() / np.abs(li64).max())
+        kb = step(f"kbet_{name}", lambda: metrics.kbet(xt, batch, k=KBET_K))
+        codes = torch.from_numpy(batch).to(xt.device)[knn_ids]
+        counts = torch.stack([(codes == b).sum(dim=1) for b in (0, 1)], dim=1).double()
+        expected = np.bincount(batch, minlength=2) / n * KBET_K
+        stat = ((counts.cpu().numpy() - expected) ** 2 / expected).sum(axis=1)
+        kb64 = float(np.mean(chi2.sf(stat, df=1) > 0.05))
+        sb = step(f"silhouette_batch_{name}", lambda: metrics.silhouette_batch(xt, batch, labels))
+        per = []
+        for c in np.unique(labels):
+            sel = np.where(labels == c)[0]
+            s_ = _sil64(torch, xt[torch.from_numpy(sel).to(xt.device)],
+                        torch.from_numpy(batch[sel].astype(np.int64)).to(xt.device))
+            per.append(float((1.0 - s_.abs()).mean()))
+        sb64 = float(np.mean(per))
+        bar(f"batch_{name}", l_err <= LISI_FAIL and abs(kb - kb64) <= KBET_FAIL
+            and abs(sb - sb64) <= METRIC_FAIL, lisi_mean=float(li.mean()),
+            lisi_rel_err=l_err, lisi_fail_above=LISI_FAIL, kbet=kb, kbet_f64=kb64,
+            kbet_fail_above=KBET_FAIL, silhouette_batch=sb, silhouette_batch_f64=sb64,
+            fail_above=METRIC_FAIL)
+    emit("metrics", case="blobs", n=n, steps_s=steps, checks=checks, card=card())
+    if failed:
+        raise AssertionError(f"metrics (blobs): bars not met: {failed}")
+
+
+def phase_analysis_scrna(torch, sc: dict, X) -> None:
+    """The analysis surface on cell 13's matrices: ``magic`` on the first
+    50,000 rows of the log-normalized matrix, its 2,000 HVGs and its
+    masked PCA scores (the densified route), within 1e-5 of max |value|
+    of a float64 3-step diffusion on the card over the same graph;
+    ``scrublet`` on one 10x lane (20,000 of cell 1's cells with 6 %
+    planted doublets across clusters), AUROC at least the bar set from the
+    JAX package's CPU run; ``score_genes`` of 50 seeded genes within 1e-6
+    of max |score| of float64 masked row sums over the controls its own
+    binning draws."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from single_algebra_tpu_torch import SparseMatrix, magic, neighbors, score_genes, scrublet
+    from single_algebra_tpu_torch.linalg.operators import DensifiedOperator
+
+    Xl, Xl64, E, mask = sc["Xl"], sc["Xl64"], sc["E"], sc["hvg_mask"]
+    n, p = Xl.shape
+    dev = torch.device(DEVICE)
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        out, steps[name] = _synced(torch, fn)
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    # magic
+    r = MAGIC_ROWS
+    cols = np.where(mask)[0]
+    Xm = Xl.select_rows(np.arange(r)).select_cols(mask)
+    Er = E[:r].contiguous()
+    out = step("magic", lambda: magic(Xm, embedding=Er, device_out=True))
+    budget = int(DensifiedOperator.hbm_budget_bytes(dev) * 1.2)
+    densified = DensifiedOperator.fits((r, r), budget_bytes=budget, needs_lo=True, device=dev)
+    t0 = time.perf_counter()
+    Wg = neighbors.connectivities(Er, 15).tolil()
+    Wg.setdiag(1.0)
+    Wg = Wg.tocsr().astype(np.float64)
+    M = sp.diags(1.0 / np.asarray(Wg.sum(axis=1)).ravel()) @ Wg
+    M64 = csr_on_card(torch, M, torch.float64)
+    D = torch.from_numpy(Xl64[:r][:, cols].toarray()).to(dev)
+    for _ in range(3):
+        D = M64 @ D
+    m_err = float((out.double() - D).abs().max() / D.abs().max())
+    del M64, D, out
+    bar("magic", densified and m_err <= MAGIC_FAIL, rel_err=m_err, fail_above=MAGIC_FAIL,
+        rows=r, genes=len(cols), route="densified" if densified else "sparse",
+        truth_s=time.perf_counter() - t0)
+    del Xm, Er
+    torch.cuda.empty_cache()
+
+    # scrublet on a 10x lane with planted doublets
+    Xp, is_doublet = planted_doublets(X, SCRUBLET_ROWS, SCRUBLET_RATE, seed=21)
+    res = step("scrublet", lambda: scrublet(SparseMatrix.from_scipy(Xp)))
+    au = auroc(res.doublet_scores, is_doublet)
+    bar("scrublet", au >= SCRUBLET_AUROC_FAIL and bool(np.isfinite(res.doublet_scores).all()),
+        auroc=au, fail_below=SCRUBLET_AUROC_FAIL, rows=SCRUBLET_ROWS,
+        planted=int(is_doublet.sum()), predicted=int(res.predicted.sum()),
+        predicted_planted=int((res.predicted & is_doublet).sum()), threshold=res.threshold)
+    del res
+
+    # score_genes: the controls its own binning draws, summed in float64
+    genes = np.random.default_rng(8).choice(p, SCORE_GENES, replace=False)
+    got = step("score_genes", lambda: score_genes(Xl, genes))
+    gene_means = Xl.sum_col().cpu().numpy().astype(np.float64) / n
+    order = np.argsort(gene_means, kind="stable")
+    ranks = np.empty(p, np.int64)
+    ranks[order] = np.arange(p)
+    bins = (ranks * 25) // p
+    sig = np.unique(genes)
+    rng = np.random.default_rng(0)
+    ctrl = []
+    for b in np.unique(bins[sig]):
+        pool = np.where(bins == b)[0]
+        pool = pool[~np.isin(pool, sig)]
+        if len(pool):
+            ctrl.append(rng.choice(pool, size=min(50, len(pool)), replace=False))
+    ctrl = np.unique(np.concatenate(ctrl))
+    rows_t, cols_t, v64 = _entries_on_card(torch, Xl64)
+    truth = torch.zeros(n, dtype=torch.float64, device=dev)
+    for sel, sign in ((sig, 1.0 / len(sig)), (ctrl, -1.0 / len(ctrl))):
+        hit = torch.zeros(p, dtype=torch.bool, device=dev)
+        hit[torch.from_numpy(sel).to(dev)] = True
+        keep = hit[cols_t]
+        truth.index_add_(0, rows_t[keep], v64[keep] * sign)
+    truth = truth.cpu().numpy()
+    del rows_t, cols_t, v64
+    s_err = float(np.abs(got - truth).max() / np.abs(truth).max())
+    bar("score_genes", s_err <= SCORE_FAIL, rel_err=s_err, fail_above=SCORE_FAIL,
+        genes=SCORE_GENES, controls=len(ctrl))
+    emit("analysis", case="scrna", steps_s=steps, checks=checks, card=card())
+    if failed:
+        raise AssertionError(f"analysis (scrna): bars not met: {failed}")
+
+
+def _eig_residual(torch, T, V, lam) -> float:
+    """max_j ||T v_j - lam_j v_j|| / ||v_j|| in float64."""
+
+    V = V.double()
+    R = T @ V - V * lam[None, :]
+    return float((R.norm(dim=0) / V.norm(dim=0)).max())
+
+
+def phase_analysis_blobs(torch, blobs: dict) -> None:
+    """The analysis models on the 50,000 blobs: ``SpectralClustering(10)``
+    (ARI >= 0.9; its eigenvectors' float64 residual ||T v - lambda v||
+    <= 1e-4), ``diffmap(S, 15, lanczos_steps=1200)`` over the exact
+    connectivities (the same residual bar, the first eigenvalue 1 within 1e-5, finite
+    ``diffusion_pseudotime``), ``mnn_correct`` of two seeded batches with a
+    planted shift (``tests/test_mnn.py``'s bar: the per-blob gap below a
+    quarter of the shift, the reference batch untouched, more than 50
+    pairs), ``ingest`` of the second half's labels from the first half
+    (accuracy >= 0.99)."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import ingest
+    from single_algebra_tpu_torch.linalg import block_lanczos as bl
+    from single_algebra_tpu_torch.models import SpectralClustering, diffmap, diffusion_pseudotime
+    from single_algebra_tpu_torch.models import mnn_correct
+
+    x, labels, S = blobs["x"], blobs["labels"], blobs["S"]
+    n = x.shape[0]
+    xt = torch.from_numpy(x).to(DEVICE)
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        out, steps[name] = _synced(torch, fn)
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    solves, real = [], bl.block_lanczos_svd
+    bl.block_lanczos_svd = lambda *a, **kw: solves.append(real(*a, **kw)) or solves[-1]
+    try:
+        sc = step("spectral", lambda: SpectralClustering(10).fit(xt))
+        dm = step("diffmap", lambda: diffmap(S, 15, lanczos_steps=DIFFMAP_KRYLOV))
+    finally:
+        bl.block_lanczos_svd = real
+    W = sc.affinity_matrix_.to_scipy().astype(np.float64)
+    d = np.asarray(W.sum(axis=1)).ravel()
+    s = 1.0 / np.sqrt(d)
+    T = csr_on_card(torch, W.multiply(s[:, None]).multiply(s[None, :]), torch.float64)
+    res = solves[0]
+    sc_res = _eig_residual(torch, T, res.u, res.s.double() - 1.0)
+    a_s = ari(sc.labels_, labels)
+    bar("spectral", a_s >= ARI_FAIL and sc_res <= EIG_RESIDUAL_FAIL, ari=a_s,
+        fail_below=ARI_FAIL, eig_residual=sc_res, residual_fail_above=EIG_RESIDUAL_FAIL,
+        eigenvalues_top3=(res.s.double() - 1.0)[:3].tolist())
+    q = np.asarray(S.sum(axis=1)).ravel().astype(np.float64)
+    K = S.astype(np.float64).multiply(1.0 / q[:, None]).multiply(1.0 / q[None, :]).tocsr()
+    z = np.asarray(K.sum(axis=1)).ravel()
+    T = csr_on_card(torch, K.multiply(1.0 / np.sqrt(z)[:, None])
+                    .multiply(1.0 / np.sqrt(z)[None, :]), torch.float64)
+    dm_res = _eig_residual(torch, T, torch.from_numpy(dm.embedding).to(DEVICE),
+                           torch.from_numpy(dm.eigenvalues).to(DEVICE))
+    del T
+    dpt = diffusion_pseudotime(dm, 0)
+    bar("diffmap", dm_res <= EIG_RESIDUAL_FAIL and abs(dm.eigenvalues[0] - 1.0) <= 1e-5
+        and bool(np.isfinite(dpt).all()), eig_residual=dm_res,
+        fail_above=EIG_RESIDUAL_FAIL, first_eigenvalue=float(dm.eigenvalues[0]),
+        eigenvalues_top3=dm.eigenvalues[:3].tolist())
+
+    rng = np.random.default_rng(9)
+    batch = np.where(rng.random(n) < 0.5, "b0", "b1")
+    shift = rng.normal(0, 1, x.shape[1])
+    shift = (shift / np.linalg.norm(shift) * MNN_SHIFT).astype(np.float32)
+    Z = x + (batch == "b1")[:, None] * shift[None, :]
+    mres = step("mnn_correct", lambda: mnn_correct(Z, batch, k=15, iterations=3))
+
+    def gap(A):
+        return float(np.mean([np.linalg.norm(A[(labels == c) & (batch == "b0")].mean(0)
+                                             - A[(labels == c) & (batch == "b1")].mean(0))
+                              for c in np.unique(labels)]))
+
+    before, after = gap(Z), gap(mres.corrected)
+    ref = batch == mres.batch_order[0]  # batches merge in first-appearance order
+    bar("mnn", after < 0.25 * before and mres.n_pairs[0] > 50
+        and np.array_equal(mres.corrected[ref], Z[ref]),
+        gap_before=before, gap_after=after, pairs=mres.n_pairs,
+        reference=mres.batch_order[0])
+
+    half = n // 2
+    pred, conf = step("ingest", lambda: ingest(x[:half], x[half:], labels[:half]))
+    acc = float(np.mean(pred == labels[half:]))
+    bar("ingest", acc >= INGEST_FAIL, accuracy=acc, fail_below=INGEST_FAIL,
+        mean_confidence=float(conf.mean()))
+    emit("analysis", case="blobs", n=n, steps_s=steps, checks=checks, card=card())
+    if failed:
+        raise AssertionError(f"analysis (blobs): bars not met: {failed}")
+
+
+def phase_io(torch, X) -> None:
+    """``io`` on one 10x lane (20,000 of cell 1's cells): written as a
+    gzipped CellRanger mtx directory (genes x cells, barcodes, features),
+    then ``read_10x_mtx`` must give the same CSR on the card. Where
+    ``h5py`` imports, also ``write_h5ad`` -> ``read_h5ad`` (the same CSR,
+    names and obsm) and ``iter_h5ad_chunks`` (its slabs the same rows);
+    else the line says ``"h5py": null``."""
+
+    import gzip
+    import shutil
+
+    import numpy as np
+    import scipy.io as sio
+    import scipy.sparse as sp
+
+    from single_algebra_tpu_torch import io
+
+    Xs = X[:IO_ROWS].tocsr()
+    n, p = Xs.shape
+    d = os.path.join(ROOT, "build", "smoke_io")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    checks, failed, steps = {}, [], {}
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    def same(a, b):
+        a, b = a.tocsr(), b.tocsr()
+        a.sort_indices()
+        b.sort_indices()
+        return (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+                and np.array_equal(a.indices, b.indices) and np.array_equal(a.data, b.data))
+
+    try:
+        t0 = time.perf_counter()
+        with gzip.open(os.path.join(d, "matrix.mtx.gz"), "wb", compresslevel=1) as f:
+            sio.mmwrite(f, Xs.T.tocoo(), field="integer")
+        with gzip.open(os.path.join(d, "barcodes.tsv.gz"), "wt", compresslevel=1) as f:
+            f.writelines(f"CELL{i:07d}-1\n" for i in range(n))
+        with gzip.open(os.path.join(d, "features.tsv.gz"), "wt", compresslevel=1) as f:
+            f.writelines(f"ENSG{j:011d}\tGENE{j}\tGene Expression\n" for j in range(p))
+        steps["write_mtx"] = time.perf_counter() - t0
+        ad, steps["read_10x_mtx"] = _synced(torch, lambda: io.read_10x_mtx(d))
+        bar("read_10x_mtx", ad.X.device.type == torch.device(DEVICE).type
+            and same(ad.X.to_scipy(), Xs)
+            and ad.var_names[-1] == f"GENE{p - 1}" and ad.obs_names[0] == "CELL0000000-1",
+            shape=list(ad.shape))
+        try:
+            import h5py  # noqa: F401
+        except ImportError:
+            h5 = None
+        else:
+            h5 = True
+            path = os.path.join(d, "lane.h5ad")
+            emb = np.random.default_rng(0).standard_normal((n, 8)).astype(np.float32)
+            _, steps["write_h5ad"] = _synced(torch, lambda: io.write_h5ad(
+                path, ad.X, obs_names=ad.obs_names, var_names=ad.var_names,
+                obsm={"X_pca": emb}))
+            back, steps["read_h5ad"] = _synced(torch, lambda: io.read_h5ad(path))
+            chunks = list(io.iter_h5ad_chunks(path, chunk_rows=4096))
+            bar("h5ad", same(back.X.to_scipy(), Xs) and same(sp.vstack(chunks), Xs)
+                and np.array_equal(back.obsm["X_pca"], emb)
+                and np.array_equal(back.var_names, ad.var_names), chunks=len(chunks))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    emit("io", rows=n, genes=p, nnz=int(Xs.nnz), h5py=h5, steps_s=steps, checks=checks,
+         card=card())
+    if failed:
+        raise AssertionError(f"io: bars not met: {failed}")
+
+
+def phase_lsi(torch, X, kernel_result: dict) -> dict:
+    """``models.lsi(m, 30)`` on cell 2's counts binarized (an ATAC peak
+    matrix's values): ``auto`` must take ``TiledSparseOperator``, whose
+    TF-IDF payload is split into hi and lo halves; every spmm / rmv launch
+    is recorded and, at each shape launched, both kernels are held against
+    their plain versions on the engine's hi and lo payloads (1e-5); the
+    singular values within 1e-4 (of the largest) of a float64 run of the
+    same randomized algorithm with the same sketch over float64 CSR
+    products of the float64 TF-IDF. -> the LSI fit's launches and its
+    sketch, for the float64 run (``lsi_f64``)."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.linalg import operators as ops
+    from single_algebra_tpu_torch.linalg import svd as svd_mod
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator
+    from single_algebra_tpu_torch.models import lsi
+    from single_algebra_tpu_torch.models import pca as pca_mod
+    from single_algebra_tpu_torch.ops import cuda_lib
+
+    Xb = X.copy()
+    Xb.data = np.ones_like(Xb.data, dtype=np.float32)
+    mb = SparseMatrix.from_scipy(Xb)
+    engines, sketches, seen = [], [], set()
+    real_engine, real_sketch = pca_mod.make_engine_operator, svd_mod.gaussian_sketch
+    originals = {name: getattr(ops, name) for name in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")}
+
+    def spy(name, fn):
+        def call(tdata, tlocal, operand, **kw):
+            seen.add((name, operand.shape[0], operand.dtype))
+            return fn(tdata, tlocal, operand, **kw)
+        return call
+
+    pca_mod.make_engine_operator = lambda m_, e: engines.append(real_engine(m_, e)) or engines[-1]
+    svd_mod.gaussian_sketch = lambda *a, **kw: sketches.append(real_sketch(*a, **kw)) or sketches[-1]
+    for name, fn in originals.items():
+        setattr(ops, name, spy(name, fn))
+    cuda_lib.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res, fit_s = _synced(torch, lambda: lsi(mb, LSI_COMPONENTS))
+    finally:
+        pca_mod.make_engine_operator, svd_mod.gaussian_sketch = real_engine, real_sketch
+        for name, fn in originals.items():
+            setattr(ops, name, fn)
+    launches = {k: cuda_lib.launch_counts[k] for k in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")}
+    peak = torch.cuda.max_memory_allocated()
+    op = engines[0]
+    if not isinstance(op, TiledSparseOperator) or op.tdata_lo is None:
+        raise AssertionError(f"lsi's 'auto' built {type(op).__name__} "
+                             f"(lo payload: {getattr(op, 'tdata_lo', None) is not None})")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"lsi did not launch both tiled kernels: {launches}")
+    if res.scores.shape != (X.shape[0], LSI_COMPONENTS) or not np.isfinite(res.scores).all():
+        raise AssertionError(f"lsi scores {res.scores.shape}, finite={np.isfinite(res.scores).all()}")
+    # every launched shape against the plain versions, on both halves
+    wt, ntiles, ct = op.meta[:3]
+    gen = torch.Generator(device=op.device)
+    gen.manual_seed(15)
+    for kp, odt in sorted({(kp, odt) for _, kp, odt in seen}, key=str):
+        names = {name for name, k, o in seen if (k, o) == (kp, odt)}
+        for half, payload in (("hi", op.tdata), ("lo", op.tdata_lo)):
+            if half == "lo" and odt == torch.bfloat16:
+                continue  # the fast products read hi alone
+            _compare_tiled(torch, kernel_result, gen, f"lsi_{half}_x_{str(odt)[6:]}_kp{kp}",
+                           payload, op.tlocal, wt=wt, ntiles=ntiles, ct=ct, kp=kp, odt=odt,
+                           spmm="tiled_ell_spmm_t" in names, rmv="tiled_ell_rmv_t" in names)
+    emit("lsi", n=X.shape[0], p=X.shape[1], nnz=int(X.nnz), components=LSI_COMPONENTS,
+         engine=type(op).__name__, wt=wt, ntiles=ntiles, lo_present=True,
+         fit_s=fit_s, launches=launches, shapes_launched=[
+             [name, kp, str(odt)] for name, kp, odt in sorted(seen, key=str)],
+         peak_alloc_gb=peak / 1e9, engine_build_s=op.build_seconds, card=card())
+    del op, engines, mb
+    torch.cuda.empty_cache()
+    return dict(launches=launches, omega=sketches[0], s=res.singular_values, fit_s=fit_s)
+
+
+class ScaledPattern64:
+    """``diag(f) B diag(g)`` in float64 on the card, B the stored pattern
+    (ones) of ``base``'s CSR matrix and its transpose (a ``Csr64Operator``)."""
+
+    def __init__(self, torch, base, f, g):
+        def ones(a):
+            return torch.sparse_csr_tensor(a.crow_indices(), a.col_indices(),
+                                           torch.ones_like(a.values()), size=a.shape)
+
+        self.shape, self.dtype, self.device = base.shape, torch.float64, f.device
+        self.b, self.bt, self.f, self.g = ones(base.a), ones(base.at), f, g
+
+    def mv(self, V):
+        return self.f[:, None] * (self.b @ (self.g[:, None] * V))
+
+    def rmv(self, C):
+        return self.g[:, None] * (self.bt @ (self.f[:, None] * C))
+
+
+def lsi_f64(torch, ref_op, X, run: dict) -> None:
+    """LSI's singular values against a float64 run of the same randomized
+    algorithm from the same sketch: the binarized TF-IDF is
+    ``diag(f) B diag(g)`` with B the pattern of ``X`` (``ref_op``'s CSR
+    structure, ones), f = log1p(1e4 / row count) and g = log1p(n / column
+    count), in float64 on the card."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.linalg.svd import randomized_svd
+    from single_algebra_tpu_torch.types import PowerIterationNormalizer
+
+    n, p = X.shape
+    rc = np.diff(X.indptr).astype(np.float64)
+    cc = np.bincount(X.indices, minlength=p).astype(np.float64)
+    f = torch.from_numpy(np.where(rc > 0, np.log1p(1e4 / np.maximum(rc, 1)), 0.0)).to(DEVICE)
+    g = torch.from_numpy(np.where(cc > 0, np.log1p(n / np.maximum(cc, 1)), 0.0)).to(DEVICE)
+
+    t0 = time.perf_counter()
+    op = ScaledPattern64(torch, ref_op, f, g)
+    t0 = time.perf_counter()
+    res = randomized_svd(op, LSI_COMPONENTS + 1, 10, 7, PowerIterationNormalizer.QR,
+                         omega=run["omega"].double())
+    del op
+    s64 = res.s.cpu().numpy()[1:]
+    err = float(np.abs(run["s"] - s64).max() / s64[0])
+    emit("lsi_ev", sv_rel_err_same_sketch_f64=err, fail_above=LSI_FAIL,
+         same_sketch_f64_s=time.perf_counter() - t0, sv_top3=run["s"][:3].tolist(),
+         sv_f64_top3=s64[:3].tolist(), card=card())
+    if not err <= LSI_FAIL:
+        raise AssertionError(f"lsi singular values vs the same-sketch f64 run {err} > {LSI_FAIL}")
 
 
 def card_mesh(torch):
@@ -3248,8 +4274,13 @@ def _phases(torch) -> int:
     torch.cuda.empty_cache()
     m = timed("stats", phase_stats, torch, X)
     ctx = timed("pipeline", phase_pipeline, torch, m)
-    launches += timed("scrna", phase_scrna, torch, m, ctx, held)
-    del m
+    sc_launches, sc = timed("scrna", phase_scrna, torch, m, ctx, held)
+    launches += sc_launches
+    timed("de", phase_de, torch, sc)
+    timed("metrics_scrna", phase_metrics_scrna, torch, sc)
+    timed("analysis_scrna", phase_analysis_scrna, torch, sc, X)
+    timed("io", phase_io, torch, X)
+    del m, sc
     torch.cuda.empty_cache()
     stream_launches, single = timed("streaming", phase_streaming, torch, X, ev_true, held,
                                     ctx["Xl64"])
@@ -3269,7 +4300,10 @@ def _phases(torch) -> int:
     tiled_launches = {name: tiled_launches[name] + mesh_launches[name] for name in tiled_launches}
     torch.cuda.empty_cache()
     timed("tsne", phase_tsne, torch)
-    timed("scrna_blobs", phase_scrna_blobs, torch)
+    blobs = timed("scrna_blobs", phase_scrna_blobs, torch)
+    timed("metrics_blobs", phase_metrics_blobs, torch, blobs)
+    timed("analysis_blobs", phase_analysis_blobs, torch, blobs)
+    del blobs
     emit("seconds", of="smoke", s=time.perf_counter() - t0)
     kernels = [dict(name="tiled_ell_densify_t", source=KERNEL_SRC, line=221,
                     launches=launches, **kern)]

@@ -28,7 +28,12 @@ scale, regress_out, ComBat, sampling), ``feature_selection`` (HVG
 selection, four flavors), ``recipes`` (the three scanpy recipes),
 ``neighbors`` (exact, mesh and IVF kNN, connectivities, bbknn),
 ``models.KMeans``, ``models.UMAP`` and ``cluster`` (Leiden, PAGA,
-dendrogram). Every public fit, transform and product runs under
+dendrogram). The analysis surface: ``metrics`` (silhouette, ARI / NMI,
+Moran's I / Geary's C, embedding density, LISI, kBET),
+``rank_genes_groups`` (t-test, wilcoxon, logreg), ``score_genes``,
+``ingest``, ``magic``, ``scrublet``, ``io`` (h5ad, 10x mtx) and the
+models ``SpectralClustering``, ``diffmap``, ``mnn_correct`` and ``lsi``.
+Every public fit, transform and product runs under
 :func:`precision_policy` (full float32, the caller's flags restored
 after).
 """
@@ -69,5 +74,11 @@ from .recipes import (  # noqa: F401
     recipe_zheng17,
 )
 from . import cluster, dense, neighbors, preprocess, qc, similarity  # noqa: F401
+from . import io, metrics  # noqa: F401
+from .de import rank_genes_groups  # noqa: F401
+from .scoring import score_genes, score_genes_cell_cycle  # noqa: F401
+from .ingest import ingest, transfer_values  # noqa: F401
+from .doublets import scrublet  # noqa: F401
+from .imputation import magic  # noqa: F401
 
 __version__ = "0.1.0"

@@ -397,3 +397,73 @@ def test_cuda_ivf_and_umap_epoch_match_the_cpu(cuda):
     Y64 = Y.cpu().double()
     upd64 = umod._layout_epoch(Y64, ed_cpu, active.cpu(), negs.cpu(), 1.0, a, b) - Y64
     assert float((upd.cpu().double() - upd64).abs().max() / upd64.abs().max()) <= 1e-4
+
+
+@pytest.mark.requires_cuda
+def test_cuda_wilcoxon_block_repeats_bit_for_bit(cuda):
+    """The Wilcoxon rank sums on the card: float64 sums of half-integer
+    ranks are exact, so a repeat and the CPU give the same bits, whatever
+    order the card's scatter-adds take."""
+
+    from single_algebra_tpu_torch import de
+
+    X = clustered_counts(4000, 200, seed=12)
+    X.data = np.log1p(X.data)
+    labels = np.random.default_rng(0).integers(0, 6, 4000)
+    m, mc = SparseMatrix.from_scipy(X), SparseMatrix.from_scipy(X, device="cpu")
+    codes = np.unique(labels, return_inverse=True)[1]
+    plans = de._wilcoxon_plans(codes, list(range(6)), None, 6)
+    mask, cmap, cols = plans[0]
+    outs = []
+    for mm in (m, m, mc):
+        lay = mm._layout_for("col")
+        dev = lay.ell_data.device
+        outs.append(de._rank_block_sparse(
+            lay.ell_data[:64], lay.ell_ids[:64], lay.row_nnz[:64],
+            torch.as_tensor(mask, device=dev), torch.as_tensor(cmap, device=dev),
+            torch.as_tensor(np.bincount(codes, minlength=6), dtype=torch.float64, device=dev),
+            len(codes), 6))
+    for a, b in zip(outs[0], outs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(outs[0], outs[2]):
+        assert torch.equal(a.cpu(), b)
+    got = de.rank_genes_groups(m, labels, method="wilcoxon")
+    want = de.rank_genes_groups(mc, labels, method="wilcoxon")
+    for g in want.names:
+        np.testing.assert_array_equal(got.scores[g], want.scores[g])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_lsi_auto_takes_the_tiled_kernels(cuda, monkeypatch):
+    """Past 40,960 columns, with the dense form over budget, ``auto``
+    takes the tiled engine: TF-IDF values split into hi and lo payloads,
+    both kernels launch, and the singular values agree with the CPU run
+    of the kernels' plain versions from the same sketch within 1e-5."""
+
+    from single_algebra_tpu_torch.linalg import svd as tsvd
+    from single_algebra_tpu_torch.linalg.operators import DensifiedOperator, TiledSparseOperator
+    from single_algebra_tpu_torch.models import lsi
+    from single_algebra_tpu_torch.ops import spmm_kernel
+
+    rng = np.random.default_rng(13)
+    n, p = 3000, 41_000
+    prog = rng.random((5, p)) < 0.01
+    lab = rng.integers(0, 5, n)
+    X = sp.csr_matrix((rng.random((n, p)) < 0.3 * prog[lab]).astype(np.float32))
+    monkeypatch.setattr(DensifiedOperator, "hbm_budget_bytes", staticmethod(lambda d: 100 << 20))
+    cpu_sketch = tsvd.gaussian_sketch
+    monkeypatch.setattr(tsvd, "gaussian_sketch", lambda p_, l, seed, *, dtype, device:
+                        cpu_sketch(p_, l, seed, dtype=dtype, device="cpu").to(device))
+    engines = []
+    real = tpca.make_engine_operator
+    monkeypatch.setattr(tpca, "make_engine_operator",
+                        lambda m_, e: engines.append(real(m_, e)) or engines[-1])
+    spmm_kernel.reset_launch_counts()
+    # the 5 programs' components (4 after the depth one): past them the
+    # spectrum is flat noise, which no randomized solve resolves to 1e-5
+    got = lsi(SparseMatrix.from_scipy(X), 4)
+    counts = dict(spmm_kernel.launch_counts)
+    assert isinstance(engines[0], TiledSparseOperator) and engines[0].tdata_lo is not None
+    assert counts["tiled_ell_spmm_t"] > 0 and counts["tiled_ell_rmv_t"] > 0
+    want = lsi(SparseMatrix.from_scipy(X, device="cpu"), 4, engine="tiled")
+    np.testing.assert_allclose(got.singular_values, want.singular_values, rtol=1e-5)

@@ -16,7 +16,13 @@ float64 epochs 1e-4 of max |Y|: the jitted JAX float64 epoch differs
 from its op-by-op evaluation by up to 5e-7 at some epochs, and the
 layout amplifies that about tenfold an epoch, so on this graph 20 epochs
 land anywhere between 7e-5 and 4e-4 with the start's rounding; the
-20-epoch case is ``tests/test_torch_umap.py``'s).
+20-epoch case is ``tests/test_torch_umap.py``'s) ->
+``rank_genes_groups(method="wilcoxon")`` on the Leiden labels, the
+example's last call (per gene, z and -log10 of the adjusted p-values
+within 1e-6 relative; the rankings equal wherever adjacent scores are
+further apart than that: the rank sums are exact in both packages at this size,
+but the JAX package's float32 tie term, ~z t0^3 ~ 4e9 for the zero tie
+group, rounds at 6e-8 relative, where the port's float64 one is exact).
 
 Each package runs on its own previous output; where the step is
 sensitive to its input's rounding (Leiden, UMAP), the port also runs on
@@ -198,3 +204,31 @@ def test_umap_with_the_jax_draws(run):
         key, active, negs = draws(key)
         Y = tu._layout_epoch(Y, ed, active, negs, tu._alpha(1.0, e, 10), a, b)
     assert rel_of_max(Y.numpy(), want) <= 1e-4
+
+
+def test_rank_genes_groups_on_the_leiden_labels(run):
+    """The example's last step: wilcoxon markers of each Leiden community
+    on the log-normalized matrix, both packages from the JAX labels."""
+
+    _, jS = run["conn"]
+    labels = jsat.leiden(jS, resolution=0.5, seed=0).labels
+    X, _ = synthetic_counts(N, P)
+    umis = run["qc"][1][0]["total_counts"]
+    tn = tsat.SparseMatrix.from_scipy(X, device="cpu").normalize(
+        umis, 1e4, tsat.Direction.ROW).log1p_normalize()
+    jn = jsat.SparseMatrix.from_scipy(X).normalize(umis, 1e4, jsat.Direction.ROW).log1p_normalize()
+    got = tsat.rank_genes_groups(tn, labels, method="wilcoxon")
+    want = jsat.rank_genes_groups(jn, labels, method="wilcoxon")
+    assert list(got.names) == list(want.names) and len(got.names) == TYPES
+    for g in want.names:
+        by_gene = np.argsort(got.names[g]), np.argsort(want.names[g])
+        for f in ("scores", "pvals_adj"):
+            a, b = (getattr(r, f)[g][o] for r, o in zip((got, want), by_gene))
+            if f == "pvals_adj":
+                a, b = -np.log10(a), -np.log10(b)
+            np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-12)
+        z = want.scores[g]
+        gap = np.diff(z, prepend=np.inf, append=-np.inf)
+        apart = (np.abs(gap[:-1]) > 1e-6 * np.abs(z)) & (np.abs(gap[1:]) > 1e-6 * np.abs(z))
+        np.testing.assert_array_equal(got.names[g][apart], want.names[g][apart])
+        assert apart[:10].sum() >= 8
