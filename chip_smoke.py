@@ -6,7 +6,8 @@ Run from the repository root on a machine with an NVIDIA Hopper card:
     python3 chip_smoke.py    # ~17 minutes: north star, the preprocessing and masked-PCA
                              # pipeline, the single-cell workflow and the analysis surface,
                              # streaming PCA, densified path, tiled path and LSI, t-SNE,
-                             # and the mesh beside them
+                             # ForceAtlas2, Harmony, NMF, the mesh pipeline stages, a
+                             # profiler trace, and the mesh beside them
 
 Phases, one JSON line each:
 
@@ -271,13 +272,56 @@ and power limit:
    gzipped 10x mtx directory and read back by ``read_10x_mtx`` to the
    same CSR on the card; with ``h5py``, also ``write_h5ad`` ->
    ``read_h5ad`` and ``iter_h5ad_chunks`` (else ``"h5py": null``).
+32. ``tracing`` (at the end of ``main_path``, on its cached Gram engine):
+   ``utils.tracing.profile_trace`` into ``build/trace/`` around one warm
+   ``fit_transform`` whose steps (engine lookup, fit, transform) are
+   ``stage``s: the Chrome trace must name every stage and hold at least
+   one densify kernel event, and the stage seconds must add up to the
+   synchronised wall time within 10 %. Its densify launches join the
+   kernels line.
+33. ``harmony`` (after ``scrna``, on its 1,000,000 x 50 masked-PCA scores):
+   two planted batches (a seeded half of the cells shifted by a seeded
+   vector, half the median distance between the 64 planted cluster
+   centroids), ``harmony`` with its defaults: one ``_kmeans_sweep`` and
+   one ``_correct`` from the same state within 1e-5 (of max |R|, of max
+   |Z|) of float64 on the card; a repeat of the whole run bit for bit;
+   batch separation (``tests/test_harmony.py``'s) after below 0.3 x
+   before; ``KMeans(64)`` on the corrected scores within 0.05 ARI of the
+   unshifted scores' from the same centers.
+34. ``mesh_pipeline`` (after ``de``, on cell 1's counts): ``ShardedSpMM``
+   on ``Mesh((cuda:0,) * 4)``, then ``mesh_qc_metrics`` ->
+   ``mesh_normalize_total(1e4)`` -> ``mesh_log1p`` ->
+   ``mesh_highly_variable_genes`` (seurat, 2,000) -> ``mesh_scale`` ->
+   ``mesh_rank_genes_groups`` (both t-tests, ``pts``) on the Leiden
+   labels, each held to the single card's ``scrna`` / ``de`` results: QC
+   counts exact, moments 1e-6 of the largest, ``dispersions_norm`` 1e-5
+   and the mask away from the cutoff, t 1e-6 of max |t|, ``pts`` exact.
+35. ``nmf`` (inside ``dense_path``, on its 400,000 x 30,000 counts and
+   payload): ``NMF(20)`` with its defaults on the densified engine (the
+   payload of the fits before it); its first 10 MU iterations (20 before
+   the smoke's time cut) from the same ``W0, H0`` within 1e-4 (of max
+   |W|, max |H|) of float64 CSR
+   products on the card; ``reconstruction_err_`` within 1e-5 of a
+   float64 recompute; then on the first 50,000 rows the gather engine
+   and ``mesh=`` (80 iterations) against each other at the JAX test's
+   bars (reconstruction error 1e-2, ``W H`` 2e-2).
+36. ``draw_graph`` (after ``scrna_blobs``, on its 50,000-node graph):
+   ForceAtlas2 with its defaults (500 iterations); the float32 forces at
+   the seeded start and after 250 iterations within 1e-4 of max |F| of a
+   float64 evaluation, two evaluations bit for bit equal; the layout
+   finite, the planted blobs' separation above 2.0; on ``Mesh((cuda:0,) *
+   4)`` 5 iterations from the same start within rtol 5e-3, atol 1e-2 of
+   the single card, then 50 iterations (100 before the smoke's time
+   cut; finite, separation above 2.0). The forces after 250 iterations
+   are those of the public run's state (its iterations split there).
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
 float32 multiply-adds (2 x stored slots x kp) over 67 TFLOP/s. The
 densify kernel's ``launches`` are those of the north star's cold fit plus
 the streaming phase's (both streams), the mesh Gram fit's, the mesh
-stream's and the scrna phase's masked fit; the tiled kernels' those of
+stream's, the scrna phase's masked fit, the tracing phase's warm fit
+and the NMF gather route's init (a Gram engine); the tiled kernels' those of
 the cold tiled fit, the ``lsi`` fit and the mesh tiled fits. The float64
 Grams of integer counts are exact: int8 tensor-core products summed in
 float64.
@@ -368,6 +412,19 @@ DIFFMAP_KRYLOV = 1_200  # diffmap's Krylov dimension: its default 120 leaves the
 MNN_SHIFT, INGEST_FAIL = 5.0, 0.99  # the planted batch shift; ingest's accuracy
 LSI_COMPONENTS, LSI_FAIL = 30, 1e-4  # lsi's components; singular values vs a same-sketch f64 run
 IO_ROWS = 20_000  # the io phase's lane
+TRACE_DIR = os.path.join(ROOT, "build", "trace")  # the tracing phase's Chrome trace
+TRACE_SUM_FAIL = 0.10  # the stage seconds vs the synchronised wall time, relative
+HARMONY_STEP_FAIL = 1e-5  # one sweep / one correction vs float64, of max |R| / max |Z|
+HARMONY_SEP_RATIO, HARMONY_ARI_DROP = 0.3, 0.05  # tests/test_harmony.py's bars
+MESH_MOMENT_FAIL, MESH_T_FAIL = 1e-6, 1e-6  # mesh stages vs the single card's
+NMF_K, NMF_F64_ITERS = 20, 10  # NMF's components; MU iterations held to float64 (20,
+# cut to 10 for the smoke's time: PERF.md section 4)
+NMF_F64_FAIL, NMF_LOSS_FAIL = 1e-4, 1e-5  # of max |W|, max |H|; the loss, relative
+NMF_SUB_ROWS, NMF_SUB_ITER = 50_000, 80  # the gather route and the mesh
+NMF_ERR_FAIL, NMF_WH_FAIL = 1e-2, 2e-2  # tests/test_nmf.py's mesh bars
+FA2_FORCE_FAIL, FA2_SEP_FAIL = 1e-4, 2.0  # forces vs float64, of max |F|; separation
+FA2_CHECK_ITER, FA2_MESH_SHORT, FA2_MESH_ITER = 250, 5, 50  # the mesh run: 100, cut to 50
+# for the smoke's time (PERF.md section 4)
 
 
 def bound(nbytes: float, flops: float = 0.0) -> dict:
@@ -882,6 +939,7 @@ def phase_main_path(torch, held_widths) -> tuple:
 
     phase_breakdown(torch, eng, pca, k)
     phase_idle(torch, eng, builder, m)
+    launches += timed("tracing", phase_tracing, torch, m, builder)
 
     # what the mesh phase holds its Gram fit to: these EVs and score rows
     single = dict(ev=ev, T_head=T[:MESH_SCORE_ROWS].clone())
@@ -938,6 +996,27 @@ def phase_dense_products(torch, op) -> None:
                     mv_rel_err=float((op.mv(B)[:8192].double() - ref).abs().max()) / scale,
                     mv_precise_rel_err=float(
                         (op.mv_precise(B)[:8192].double() - ref).abs().max()) / scale)
+        if k == 50:
+            # rmv over every row against float64 row blocks, beside the
+            # same precise product as one cuBLAS call over all the rows;
+            # a nonnegative operand (NMF's): no cancellation hides the
+            # accumulation's error
+            C = torch.rand((n, k), generator=gen, device=op.device)
+            ref_t = torch.zeros((p, k), dtype=torch.float64, device=op.device)
+            for r0 in range(0, n, 8192):
+                ref_t += op.hi[r0:r0 + 8192].double().T @ C[r0:r0 + 8192].double()
+                if op.lo is not None:
+                    ref_t += op.lo[r0:r0 + 8192].double().T @ C[r0:r0 + 8192].double()
+            stacked = torch.cat(bf16_terms(C.float()), dim=1)
+            parts = torch.mm(op.hi.T, stacked, out_dtype=torch.float32).double()
+            if op.lo is not None:
+                parts += torch.mm(op.lo.T, stacked, out_dtype=torch.float32).double()
+            one_call = parts[:, :k] + parts[:, k:2 * k] + parts[:, 2 * k:]
+            scale_t = float(ref_t.abs().max())
+            line.update(rmv_precise_rel_err=float(
+                (op.rmv_precise(C).double() - ref_t).abs().max()) / scale_t,
+                rmv_precise_one_call_rel_err=float((one_call - ref_t).abs().max()) / scale_t)
+            del ref_t, stacked, parts, one_call
         if k == 1:
             stacked = torch.cat(bf16_terms(B), dim=1)  # [p, 3]
             line["mv_precise_unpadded_3col_ms"] = _time_ms(
@@ -947,7 +1026,7 @@ def phase_dense_products(torch, op) -> None:
             raise AssertionError(f"dense mv_precise rel err {line['mv_precise_rel_err']} > 1e-6")
 
 
-def phase_dense_path(torch) -> None:
+def phase_dense_path(torch) -> int:
     """The densified engine's path once, through the user-facing entry
     points, at 400,000 x 30,000: 'auto' must build ``DensifiedOperator``.
     (a) ``SparsePCABuilder``'s defaults (Lanczos, adaptive, tolerance 1e-6), cold
@@ -1026,7 +1105,9 @@ def phase_dense_path(torch) -> None:
          hi_identical=same, lo=[op.lo is None, host.lo is None])
     if not same or host.lo is not None or op.lo is not None:
         raise AssertionError("the two construction routes disagree on an exact matrix")
-    del host, op, m
+    del host
+    nmf_launches = timed("nmf", phase_nmf, torch, m, X)
+    del op, m
     torch.cuda.empty_cache()
     mesh_dense = timed("mesh_dense", phase_mesh_dense, torch, X)
 
@@ -1114,6 +1195,7 @@ def phase_dense_path(torch) -> None:
          ev_rel_err=err, ev_fail_above=EV_FAIL)
     if not same or not err <= EV_FAIL:
         raise AssertionError(f"dense lo variant: routes identical={same}, EV rel err {err}")
+    return nmf_launches
 
 
 def csr_on_card(torch, M, dtype):
@@ -2816,7 +2898,7 @@ def phase_scrna(torch, m, ctx: dict, held_widths) -> int:
     if failed:
         raise AssertionError(f"scrna: bars not met: {failed}")
     return launches, dict(Xl=Xl, Xl64=Xl64, E=E, Y=Y, S=S, labels=lr.labels,
-                          hvg_mask=hvg.mask)
+                          hvg_mask=hvg.mask, hvg=hvg, qc=(obs, var))
 
 
 def phase_scrna_blobs(torch) -> dict:
@@ -3005,7 +3087,7 @@ def _by_gene(res, g, field="scores"):
     return out
 
 
-def phase_de(torch, sc: dict) -> None:
+def phase_de(torch, sc: dict) -> dict:
     """The example's last step (``examples/scrna_pipeline.py``):
     ``rank_genes_groups`` on the pipeline's log-normalized 1M x 30k matrix
     and the ``scrna`` phase's Leiden labels, with 'wilcoxon', 't-test' and
@@ -3058,6 +3140,7 @@ def phase_de(torch, sc: dict) -> None:
 
     # grouped moments
     sizes, mean, var = step("moments", lambda: de._full_moments(Xl, codes, G))
+    single = dict(moments=(sizes, mean, var))  # what the mesh_pipeline phase is held to
     mean64 = sums / sizes64[None, :]
     var64 = np.maximum((sumsq - sums * mean64) / np.maximum(sizes64 - 1, 1)[None, :], 0.0)
     m_err = float(np.abs(mean - mean64).max() / np.abs(mean64).max())
@@ -3085,6 +3168,7 @@ def phase_de(torch, sc: dict) -> None:
         bar(method, t_err <= DE_T_FAIL and top_off == 0 and pts_ok, t_rel_err=t_err,
             fail_above=DE_T_FAIL, top5_groups_checked=top_checked, top5_mismatches=top_off,
             pts_exact=bool(pts_ok))
+        single[method] = res
         del res
 
     # wilcoxon: the whole ranking, then z of 64 seeded genes against
@@ -3172,6 +3256,7 @@ def phase_de(torch, sc: dict) -> None:
          peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
     if failed:
         raise AssertionError(f"de: bars not met: {failed}")
+    return single
 
 
 def phase_metrics_scrna(torch, sc: dict) -> None:
@@ -4233,6 +4318,496 @@ def phase_mesh_tsne(torch, x, labels, cfg, single_epoch_ms: float) -> None:
         raise AssertionError("mesh t-SNE: a bar was not met")
 
 
+def phase_tracing(torch, m, builder) -> int:
+    """``utils.tracing`` around one warm ``fit_transform`` of the main path
+    (its Gram engine cached on ``m``): the steps as ``stage``s inside one
+    ``profile_trace`` written to ``build/trace/``. -> its densify launches."""
+
+    import glob
+    import shutil
+
+    from single_algebra_tpu_torch.models import make_engine_operator
+    from single_algebra_tpu_torch.ops import densify
+    from single_algebra_tpu_torch.utils.tracing import (
+        profile_trace, reset_stage_timings, stage, stage_timings)
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    os.makedirs(TRACE_DIR)
+    names = ("engine", "fit", "transform")
+    reset_stage_timings()
+    densify.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t_trace = time.perf_counter()
+    with profile_trace(TRACE_DIR):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with stage("engine"):
+            make_engine_operator(m, "auto")
+        with stage("fit"):
+            pca = builder().build().fit(m)
+        with stage("transform"):
+            T = pca.transform(m)
+        wall = time.perf_counter() - t0  # each stage synchronises the card on exit
+    trace_s = time.perf_counter() - t_trace
+    launches = densify.launch_counts["tiled_ell_densify_t"]
+    st = stage_timings()
+    files = glob.glob(os.path.join(TRACE_DIR, "*.pt.trace.json"))
+    events = json.load(open(files[0]))["traceEvents"] if len(files) == 1 else []
+    ev_names = {e.get("name", "") for e in events}
+    kernel_events = sum(1 for e in events
+                        if e.get("cat") == "kernel" and "densify_tile_kernel" in e.get("name", ""))
+    total = sum(st.values())
+    ok = (set(st) == set(names) and set(names) <= ev_names and kernel_events > 0
+          and launches > 0 and abs(total - wall) <= TRACE_SUM_FAIL * wall
+          and bool(torch.isfinite(T).all()))
+    emit("tracing", stages_s=st, stage_sum_s=total, wall_s=wall, with_capture_and_export_s=trace_s,
+         sum_vs_wall=(total - wall) / wall, fail_above=TRACE_SUM_FAIL,
+         trace_files=[os.path.relpath(f, ROOT) for f in files],
+         trace_mb=sum(os.path.getsize(f) for f in files) / 1e6, trace_events=len(events),
+         densify_kernel_events=kernel_events, densify_launches=launches,
+         stage_names_in_trace=sorted(set(names) & ev_names),
+         peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+    if not ok:
+        raise AssertionError("tracing: the trace, the stages or their seconds are off")
+    return launches
+
+
+def _group_means64(torch, Z, lab, G: int):
+    """float64 ``[G, d]`` means of the rows of ``Z`` by ``lab`` (host ints)."""
+
+    lab_t = torch.from_numpy(lab).to(Z.device)
+    Z = Z.double()
+    s = torch.zeros((G, Z.shape[1]), dtype=torch.float64, device=Z.device).index_add_(0, lab_t, Z)
+    c = torch.bincount(lab_t, minlength=G).double()
+    return s / c[:, None]
+
+
+def _batch_separation64(torch, Z, types, batch):
+    """``tests/test_harmony.py::_batch_separation`` on the card in float64:
+    the mean over types of the distance between the two batches'
+    centroids, over the global standard deviation of Z."""
+
+    import numpy as np
+
+    G = int(types.max()) + 1
+    a = _group_means64(torch, Z, types * 2 + batch.astype(np.int64), 2 * G).view(G, 2, -1)
+    gaps = torch.linalg.norm(a[:, 0] - a[:, 1], dim=1)
+    return float(gaps.mean() / Z.double().std())
+
+
+def _correct_float32_systems(torch, Z, R, phi_star, lam: float):
+    """Harmony's correction with its ridge systems formed and solved in
+    float32, the JAX package's arithmetic (for the record beside the
+    port's float64 systems)."""
+
+    n, q = phi_star.shape
+    K, d = R.shape[1], Z.shape[1]
+    RP = (R[:, :, None] * phi_star[:, None, :]).reshape(n, K * q)
+    ridge = torch.ones(q, device=Z.device)
+    ridge[0] = 0.0
+    A = (RP.T @ phi_star).reshape(K, q, q) + lam * torch.diag(ridge)
+    W = torch.linalg.solve(A, (RP.T @ Z).reshape(K, q, d))
+    W[:, 0] = 0.0
+    return Z - RP @ W.reshape(K * q, d)
+
+
+def phase_harmony(torch, sc: dict) -> None:
+    """Cell 13's masked-PCA scores with two planted batches through
+    ``harmony``'s defaults (K 100, sigma 0.1, theta 2). See the module
+    docstring (33) for the bars."""
+
+    import importlib
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.models import KMeans, harmony
+    from single_algebra_tpu_torch.models import kmeans as kmod
+
+    hm = importlib.import_module("single_algebra_tpu_torch.models.harmony")
+    E = sc["E"]
+    n, d = E.shape
+    dev = E.device
+    sizes = np.full(64, n // 64)
+    sizes[: n % 64] += 1
+    planted = np.repeat(np.arange(64), sizes)
+    checks, failed, steps = {}, [], {}
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    rng = np.random.default_rng(21)
+    C = _group_means64(torch, E, planted, 64)
+    dist = torch.cdist(C, C)
+    med = float(dist[torch.triu(torch.ones_like(dist, dtype=torch.bool), 1)].median())
+    shift = rng.standard_normal(d)
+    shift *= 0.5 * med / np.linalg.norm(shift)
+    batch = np.zeros(n, bool)
+    batch[rng.permutation(n)[: n // 2]] = True
+    Zs = E + torch.from_numpy(batch).to(dev)[:, None] * torch.from_numpy(shift).float().to(dev)
+    labels = np.where(batch, "b1", "b0")
+    torch.cuda.reset_peak_memory_stats()
+
+    res, steps["harmony"] = _synced(torch, lambda: harmony(Zs, labels))
+    again, steps["harmony_repeat"] = _synced(torch, lambda: harmony(Zs, labels))
+    Zh = torch.from_numpy(res.embedding).to(dev)
+    bar("repeat", np.array_equal(res.embedding, again.embedding)
+        and res.objective == again.objective, bit_identical=True)
+    del again
+    before = _batch_separation64(torch, Zs, planted, batch)
+    after = _batch_separation64(torch, Zh, planted, batch)
+    bar("mixing", after < HARMONY_SEP_RATIO * before and bool(torch.isfinite(Zh).all()),
+        separation_before=before, separation_after=after, fail_above_ratio=HARMONY_SEP_RATIO)
+    # structure: Lloyd from the same k-means++ centers on the unshifted and
+    # the corrected scores
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    w = torch.ones(n, device=dev)
+    C0 = kmod._plusplus_init(gen, E, kmod._row_sq_norms(E), w, 64)
+    base = kmod._lloyd(E, kmod._row_sq_norms(E), KMeans(64)._tol2(E), C0, w, k=64, max_iter=300)
+    corr = kmod._lloyd(Zh, kmod._row_sq_norms(Zh), KMeans(64)._tol2(Zh), C0, w, k=64,
+                       max_iter=300)
+    a_base = ari(base[1].cpu().numpy(), planted)
+    a_corr = ari(corr[1].cpu().numpy(), planted)
+    bar("structure", a_corr >= a_base - HARMONY_ARI_DROP, ari_corrected=a_corr,
+        ari_unshifted=a_base, fail_below=a_base - HARMONY_ARI_DROP)
+    del base, corr, Zh
+
+    # one sweep and one correction from the same state against float64
+    B, codes = hm._batch_codes(labels, n)
+    K = min(100, max(2, round(n / 30)))
+    Zc = hm._l2n(Zs)
+    km = KMeans(n_clusters=K, n_init=1, max_iter=10, random_seed=0, device=dev).fit(Zc)
+    Y = hm._l2n(km.cluster_centers_.float())
+    phi = torch.nn.functional.one_hot(torch.from_numpy(codes).to(dev), B).float()
+    phi_star = torch.cat([torch.ones((n, 1), device=dev), phi], dim=1)
+    O0 = torch.ones((B, K), device=dev)
+    R = hm._assign_block(Zc, phi, Y, O0, O0, 0.1, 2.0)
+    nb = phi.sum(dim=0) / n
+    O, Eb = phi.T @ R, torch.outer(nb, R.sum(dim=0))
+    blocks = torch.split(torch.from_numpy(np.random.default_rng(0).permutation(n)).to(dev),
+                         max(int(np.ceil(n * 0.05)), 1))
+    state = (Zc, phi, R, O, Eb, nb)
+    out32, steps["sweep"] = _synced(torch, lambda: hm._kmeans_sweep(*state, blocks, 0.1, 2.0))
+    out64 = hm._kmeans_sweep(*(t.double() for t in state), blocks, 0.1, 2.0)
+    r_err = float((out32[0].double() - out64[0]).abs().max() / out64[0].abs().max())
+    z32, steps["correct"] = _synced(torch, lambda: hm._correct(Zs, out64[0].float(), phi_star, 1.0))
+    z64 = hm._correct(Zs.double(), out64[0], phi_star.double(), 1.0)
+    z_err = float((z32.double() - z64).abs().max() / z64.abs().max())
+    zj = _correct_float32_systems(torch, Zs, out64[0].float(), phi_star, 1.0)
+    zj_err = float((zj.double() - z64).abs().max() / z64.abs().max())
+    bar("one_step_f64", r_err <= HARMONY_STEP_FAIL and z_err <= HARMONY_STEP_FAIL,
+        R_rel_err=r_err, Z_rel_err=z_err, fail_above=HARMONY_STEP_FAIL,
+        Z_rel_err_float32_systems=zj_err)
+    del out32, out64, z32, z64, zj, state, R, phi, phi_star
+    torch.cuda.empty_cache()
+    emit("harmony", n=n, d=d, K=K, batches=B, shift_norm=float(np.linalg.norm(shift)),
+         median_centroid_distance=med, rounds=res.n_rounds, converged=res.converged,
+         objective=res.objective, s_per_round=steps["harmony"] / max(res.n_rounds, 1),
+         steps_s=steps, checks=checks, peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=card())
+    if failed:
+        raise AssertionError(f"harmony: bars not met: {failed}")
+
+
+def phase_mesh_pipeline(torch, m, sc: dict, de_single: dict) -> None:
+    """The mesh pipeline stages on cell 1's counts over ``Mesh((cuda:0,) *
+    4)``, each held to the single card's ``scrna`` / ``de`` result. See the
+    module docstring (34) for the bars."""
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.parallel import (
+        ShardedSpMM, mesh_col_moments, mesh_grouped_moments, mesh_highly_variable_genes,
+        mesh_log1p, mesh_normalize_total, mesh_qc_metrics, mesh_rank_genes_groups, mesh_scale)
+
+    mesh = card_mesh(torch)
+    n, p = m.shape
+    steps, checks, failed = {}, {}, []
+
+    def step(name, fn):
+        out, steps[name] = _synced(torch, fn)
+        return out
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    torch.cuda.reset_peak_memory_stats()
+    op = step("sharded_spmm", lambda: ShardedSpMM.from_matrix(m, mesh))
+    mito = np.zeros(p, bool)
+    mito[::13] = True
+    obs, var = step("qc", lambda: mesh_qc_metrics(op, qc_vars={"mito": mito}))
+    obs1, var1 = sc["qc"]
+    keys = [("obs", k) for k in ("n_genes_by_counts", "total_counts", "total_counts_mito")] + \
+        [("var", k) for k in ("n_cells_by_counts", "total_counts")]
+    bar("qc", all(np.array_equal((obs if w == "obs" else var)[k], (obs1 if w == "obs" else var1)[k])
+                  for w, k in keys), exact=[f"{w}.{k}" for w, k in keys])
+    op_n, _ = step("normalize_total", lambda: mesh_normalize_total(op, target_sum=NORM_TARGET))
+    del op
+    op_l = step("log1p", lambda: mesh_log1p(op_n))
+    del op_n
+    hvg = step("hvg", lambda: mesh_highly_variable_genes(op_l, n_top_genes=SCRNA_HVG,
+                                                          flavor="seurat"))
+    h1 = sc["hvg"]
+    norm1 = np.asarray(h1.dispersions_norm, np.float64)
+    scale = float(np.abs(norm1).max())
+    d_err = float(np.abs(np.asarray(hvg.dispersions_norm, np.float64) - norm1).max() / scale)
+    cutoff = np.sort(norm1)[::-1][SCRNA_HVG - 1]
+    near = np.abs(norm1 - cutoff) <= HVG_FAIL * scale
+    off = int(((hvg.mask != h1.mask) & ~near).sum())
+    mean_e, _ = mesh_col_moments(op_l, expm1=True)
+    mu_err = float(np.abs(mean_e - np.asarray(h1.means, np.float64)).max()
+                   / np.abs(np.asarray(h1.means, np.float64)).max())
+    bar("hvg", d_err <= HVG_FAIL and off == 0 and mu_err <= MESH_MOMENT_FAIL,
+        dispersions_norm_rel_err=d_err, fail_above=HVG_FAIL, mask_mismatch_beyond_cutoff=off,
+        genes_near_cutoff=int(near.sum()), means_rel_err=mu_err,
+        means_fail_above=MESH_MOMENT_FAIL)
+    op_s = step("scale", lambda: mesh_scale(op_l))
+    _, var_s = mesh_col_moments(op_s)
+    live = var_s > 0
+    bar("scale", bool(np.isfinite(var_s).all()),
+        unit_variance_max_abs_err=float(np.abs(var_s[live] - 1.0).max()))
+    del op_s
+    labels = sc["labels"]
+    names, codes = m._batch_codes(list(labels), n, "row")
+    G = len(names)
+    sizes, mean, var_g = step("grouped_moments", lambda: mesh_grouped_moments(op_l, codes, G))
+    sizes1, mean1, var1_g = de_single["moments"]
+    m_err = float(np.abs(mean - mean1).max() / np.abs(mean1).max())
+    v_err = float(np.abs(var_g - var1_g).max() / np.abs(var1_g).max())
+    bar("moments", np.array_equal(sizes, sizes1) and max(m_err, v_err) <= MESH_MOMENT_FAIL,
+        mean_rel_err=m_err, var_rel_err=v_err, fail_above=MESH_MOMENT_FAIL)
+    for method in ("t-test", "t-test_overestim_var"):
+        res = step(method, lambda: mesh_rank_genes_groups(op_l, labels, method=method, pts=True))
+        ref = de_single[method]
+        t_err, pts_ok = 0.0, True
+        for g in names:
+            t1 = _by_gene(ref, g)
+            t_err = max(t_err, float(np.abs(_by_gene(res, g) - t1).max() / np.abs(t1).max()))
+            pts_ok &= (np.array_equal(_by_gene(res, g, "pts"), _by_gene(ref, g, "pts"))
+                       and np.array_equal(_by_gene(res, g, "pts_rest"),
+                                          _by_gene(ref, g, "pts_rest")))
+        bar(method, t_err <= MESH_T_FAIL and pts_ok, t_rel_err=t_err, fail_above=MESH_T_FAIL,
+            pts_exact=bool(pts_ok))
+        del res
+    for method in ("wilcoxon", "logreg"):
+        try:
+            mesh_rank_genes_groups(op_l, labels, method=method)
+            refused = False
+        except ValueError as e:
+            refused = "not supported on the mesh" in str(e)
+        bar(f"refuses_{method}", refused)
+    del op_l
+    torch.cuda.empty_cache()
+    emit("mesh_pipeline", n=n, p=p, entries=mesh.size, groups=G, steps_s=steps, checks=checks,
+         peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9, card=card())
+    if failed:
+        raise AssertionError(f"mesh_pipeline: bars not met: {failed}")
+
+
+def phase_nmf(torch, m, X) -> int:
+    """``NMF(20)`` on the densified path's matrix and payload. See the
+    module docstring (35) for the bars. -> the densify launches of the
+    gather route's init (a Gram engine)."""
+
+    import importlib
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.linalg.operators import DensifiedOperator
+    from single_algebra_tpu_torch.models import NMF
+    from single_algebra_tpu_torch.ops import densify
+
+    nm = importlib.import_module("single_algebra_tpu_torch.models.nmf")
+    n, p = m.shape
+    dev = torch.device(DEVICE)
+    steps, checks, failed = {}, {}, []
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    torch.cuda.reset_peak_memory_stats()
+    model = NMF(NMF_K)
+    W, steps["fit"] = _synced(torch, lambda: model.fit_transform(m))
+    op = m._operator_cache.get("dense")
+    bar("engine", model.engine_ == "DensifiedOperator" and op is m._operator_cache.get("auto")
+        and np.isfinite(W).all() and W.shape == (n, NMF_K) and (W >= 0).all(),
+        engine=model.engine_, one_payload=op is m._operator_cache.get("auto"))
+
+    # the first MU iterations from the same start against float64 CSR products
+    W0, H0 = model._init_wh(m, torch.float32)
+    x_sq = nm._x_sq(m, torch.float32)
+    (W32, H32, _, _), steps["mu_f32"] = _synced(
+        torch, lambda: nm._mu_loop(op, W0, H0, x_sq, 0.0, NMF_F64_ITERS))
+    t0 = time.perf_counter()
+    op64 = Csr64Operator(torch, X, DEVICE)
+    x_sq64 = torch.tensor(float(np.square(X.data, dtype=np.float64).sum()), dtype=torch.float64,
+                          device=dev)
+    W64, H64, _, _ = nm._mu_loop(op64, W0.double(), H0.double(), x_sq64, 0.0, NMF_F64_ITERS)
+    w_err = float((W32.double() - W64).abs().max() / W64.abs().max())
+    h_err = float((H32.double() - H64).abs().max() / H64.abs().max())
+    bar("mu_f64", max(w_err, h_err) <= NMF_F64_FAIL, W_rel_err=w_err, H_rel_err=h_err,
+        iterations=NMF_F64_ITERS, fail_above=NMF_F64_FAIL, truth_s=time.perf_counter() - t0)
+    del W32, H32, W64, H64, W0, H0
+    Wt = torch.from_numpy(W).to(dev).double()
+    Ht = torch.from_numpy(model.components_).to(dev).double()
+    loss64 = x_sq64 - 2.0 * (Wt * op64.mv(Ht.T)).sum() + ((Wt.T @ Wt) * (Ht @ Ht.T)).sum()
+    err64 = float(torch.sqrt(torch.clamp(loss64, min=0.0)))
+    l_err = abs(model.reconstruction_err_ - err64) / err64
+    bar("loss", l_err <= NMF_LOSS_FAIL, reconstruction_err=model.reconstruction_err_,
+        reconstruction_err_f64=err64, rel_err=l_err, fail_above=NMF_LOSS_FAIL)
+    del op64, Wt, Ht, W
+    torch.cuda.empty_cache()
+
+    # the gather route (the dense budget at 0) and the mesh on the first rows
+    sub = m.select_rows(np.arange(NMF_SUB_ROWS))
+    budget = DensifiedOperator.hbm_budget_bytes
+    DensifiedOperator.hbm_budget_bytes = staticmethod(lambda device: 0)
+    densify.reset_launch_counts()
+    try:
+        gather = NMF(NMF_K, max_iter=NMF_SUB_ITER)
+        Wg, steps["gather_fit"] = _synced(torch, lambda: gather.fit_transform(sub))
+    finally:
+        DensifiedOperator.hbm_budget_bytes = budget
+    launches = densify.launch_counts["tiled_ell_densify_t"]
+    meshed = NMF(NMF_K, max_iter=NMF_SUB_ITER, mesh=card_mesh(torch))
+    Wm, steps["mesh_fit"] = _synced(torch, lambda: meshed.fit_transform(sub))
+    e_err = abs(meshed.reconstruction_err_ - gather.reconstruction_err_) / gather.reconstruction_err_
+    Wg_t, Wm_t = torch.from_numpy(Wg).to(dev), torch.from_numpy(Wm).to(dev)
+    Hg_t = torch.from_numpy(gather.components_).to(dev)
+    Hm_t = torch.from_numpy(meshed.components_).to(dev)
+    num = den = 0.0
+    for r0 in range(0, NMF_SUB_ROWS, 5_000):
+        Rg = Wg_t[r0:r0 + 5_000] @ Hg_t
+        num += float(((Wm_t[r0:r0 + 5_000] @ Hm_t - Rg).double() ** 2).sum())
+        den += float((Rg.double() ** 2).sum())
+    wh_err = (num / den) ** 0.5
+    bar("gather_vs_mesh", gather.engine_ == "SparseOperator" and meshed.engine_ == "ShardedSpMM"
+        and e_err <= NMF_ERR_FAIL and wh_err <= NMF_WH_FAIL, err_rel=e_err,
+        err_fail_above=NMF_ERR_FAIL, WH_rel=wh_err, WH_fail_above=NMF_WH_FAIL,
+        iterations=[gather.n_iter_, meshed.n_iter_], rows=NMF_SUB_ROWS,
+        init_densify_launches=launches)
+    del sub, Wg_t, Wm_t, Hg_t, Hm_t
+    torch.cuda.empty_cache()
+    emit("nmf", n=n, p=p, k=NMF_K, n_iter=model.n_iter_, fit_s=steps["fit"],
+         ms_per_iteration=steps["mu_f32"] / NMF_F64_ITERS * 1e3,
+         gather_fit_s=steps["gather_fit"], mesh_fit_s=steps["mesh_fit"],
+         steps_s=steps, checks=checks, peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=card())
+    if failed:
+        raise AssertionError(f"nmf: bars not met: {failed}")
+    return launches
+
+
+def fa2_separation(y, labels) -> float:
+    """``tests/test_draw_graph.py::_separation``: the least distance between
+    two label centroids over the mean within-label spread."""
+
+    import numpy as np
+
+    labs = np.unique(labels)
+    cents = np.stack([y[labels == c].mean(0) for c in labs])
+    within = np.mean([np.linalg.norm(y[labels == c] - cents[i], axis=1).mean()
+                      for i, c in enumerate(labs)])
+    d = np.linalg.norm(cents[:, None] - cents[None, :], axis=-1)
+    return float(d[np.triu_indices_from(d, k=1)].min() / max(within, 1e-9))
+
+
+def phase_draw_graph(torch, blobs: dict) -> None:
+    """ForceAtlas2 on the blobs' 50,000-node graph. See the module
+    docstring (36) for the bars."""
+
+    import importlib
+
+    import numpy as np
+
+    from single_algebra_tpu_torch.models import draw_graph
+
+    dg = importlib.import_module("single_algebra_tpu_torch.models.draw_graph")
+    S, labels = blobs["S"], blobs["labels"]
+    n = S.shape[0]
+    dev = torch.device(DEVICE)
+    steps, checks, failed = {}, {}, []
+
+    def bar(name, ok, **fields):
+        checks[name] = dict(ok=bool(ok), **fields)
+        if not ok:
+            failed.append(name)
+
+    # the public run, its iterations split at FA2_CHECK_ITER (the same
+    # state carried over: the same bits) to keep that state for the checks
+    kept, run = {}, dg._fa2_chunk
+
+    def split(state, mass, e_src, e_dst, e_val, i0, i1, *args, **kwargs):
+        if i0 < FA2_CHECK_ITER < i1:
+            state = run(state, mass, e_src, e_dst, e_val, i0, FA2_CHECK_ITER, *args, **kwargs)
+            kept.update(state=state, mass=mass, e_src=e_src, e_dst=e_dst, e_val=e_val)
+            i0 = FA2_CHECK_ITER
+        return run(state, mass, e_src, e_dst, e_val, i0, i1, *args, **kwargs)
+
+    torch.cuda.reset_peak_memory_stats()
+    dg._fa2_chunk = split
+    try:
+        y, steps["draw_graph"] = _synced(torch, lambda: draw_graph(S))
+    finally:
+        dg._fa2_chunk = run
+    sep = fa2_separation(y, labels)
+    bar("layout", np.isfinite(y).all() and y.shape == (n, 2) and sep > FA2_SEP_FAIL,
+        separation=sep, fail_below=FA2_SEP_FAIL, radius=float(np.abs(y).max()))
+
+    # the forces, float32 against float64, at the seeded start and after 250
+    # iterations of the public run
+    mass, e_src, e_dst, e_val = (kept[k] for k in ("mass", "e_src", "e_dst", "e_val"))
+    lengths = torch.bincount(e_src, minlength=n)
+    opts = dict(strong_gravity=False, lin_log=False, outbound=False)
+    block = min(2048, max(-(-n // 8) // 128 * 128, 128))
+
+    def forces(yt):
+        return dg._forces(yt, mass.to(yt.dtype), e_src, e_dst, e_val.to(yt.dtype), scaling=2.0,
+                          gravity=1.0, block=block, lengths=lengths, **opts)
+
+    def force_check(yt):
+        f, f_s = _synced(torch, lambda: forces(yt))
+        f64 = forces(yt.double())
+        return (float((f.double() - f64).abs().max() / f64.abs().max()),
+                bool(torch.equal(f, forces(yt))), f_s)
+
+    y0 = dg._start(n, 2, 0, dev)  # the public run's seeded start
+    err0, same0, f_s = force_check(y0)
+    y250 = kept.pop("state")[0]
+    err1, same1, _ = force_check(y250)
+    bar("forces_f64", max(err0, err1) <= FA2_FORCE_FAIL and same0 and same1,
+        rel_err_start=err0, rel_err_at_250=err1, fail_above=FA2_FORCE_FAIL,
+        bit_identical=same0 and same1, radius_at_250=float(y250.abs().max()))
+    del y250, kept
+
+    # the mesh: a short run from the same start, then a longer one
+    mesh = card_mesh(torch)
+    init = y0.cpu().numpy()
+    y5 = draw_graph(S, n_iter=FA2_MESH_SHORT, init=init)
+    y5m = draw_graph(S, n_iter=FA2_MESH_SHORT, init=init, mesh=mesh)
+    close = bool(np.allclose(y5m, y5, rtol=5e-3, atol=1e-2))
+    ym, steps["draw_graph_mesh"] = _synced(torch, lambda: draw_graph(S, n_iter=FA2_MESH_ITER,
+                                                                      mesh=mesh))
+    sep_m = fa2_separation(ym, labels)
+    bar("mesh", close and np.isfinite(ym).all() and sep_m > FA2_SEP_FAIL,
+        short_max_abs_diff=float(np.abs(y5m - y5).max()), short_rtol=5e-3, short_atol=1e-2,
+        separation=sep_m, fail_below=FA2_SEP_FAIL)
+    emit("draw_graph", n=n, edges=int(S.nnz), iterations=500, block=block,
+         ms_per_iteration=steps["draw_graph"] / 500 * 1e3, force_eval_ms=f_s * 1e3,
+         mesh_entries=mesh.size, mesh_iterations=FA2_MESH_ITER,
+         mesh_ms_per_iteration=steps["draw_graph_mesh"] / FA2_MESH_ITER * 1e3,
+         steps_s=steps, checks=checks, peak_alloc_gb=torch.cuda.max_memory_allocated() / 1e9,
+         card=card())
+    if failed:
+        raise AssertionError(f"draw_graph: bars not met: {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -4276,7 +4851,10 @@ def _phases(torch) -> int:
     ctx = timed("pipeline", phase_pipeline, torch, m)
     sc_launches, sc = timed("scrna", phase_scrna, torch, m, ctx, held)
     launches += sc_launches
-    timed("de", phase_de, torch, sc)
+    timed("harmony", phase_harmony, torch, sc)
+    de_single = timed("de", phase_de, torch, sc)
+    timed("mesh_pipeline", phase_mesh_pipeline, torch, m, sc, de_single)
+    del de_single
     timed("metrics_scrna", phase_metrics_scrna, torch, sc)
     timed("analysis_scrna", phase_analysis_scrna, torch, sc, X)
     timed("io", phase_io, torch, X)
@@ -4292,7 +4870,7 @@ def _phases(torch) -> int:
     timed("similarity", phase_similarity, torch, ctx.pop("T"))
     del ctx
     torch.cuda.empty_cache()
-    timed("dense_path", phase_dense_path, torch)
+    launches += timed("dense_path", phase_dense_path, torch)
     torch.cuda.empty_cache()
     tiled_kern = {}
     timed("kernel_tiled", phase_kernel_tiled, torch, tiled_kern)
@@ -4301,6 +4879,7 @@ def _phases(torch) -> int:
     torch.cuda.empty_cache()
     timed("tsne", phase_tsne, torch)
     blobs = timed("scrna_blobs", phase_scrna_blobs, torch)
+    timed("draw_graph", phase_draw_graph, torch, blobs)
     timed("metrics_blobs", phase_metrics_blobs, torch, blobs)
     timed("analysis_blobs", phase_analysis_blobs, torch, blobs)
     del blobs

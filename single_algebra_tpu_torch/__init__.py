@@ -7,7 +7,7 @@ written by hand for NVIDIA Hopper (``csrc/``), built with ``nvcc`` on
 first use; on CPU tensors each kernel's wrapper runs its plain PyTorch
 version.
 
-Ported so far: the reference crate's surface. ``SparseMatrix`` with its
+The reference crate's surface: ``SparseMatrix`` with its
 device padded-ELL layouts, statistics and value maps (``normalize``,
 ``log1p_normalize``, ``map_stored``); ``dense`` (normalize, log1p);
 ``SparsePCA`` and ``MaskedSparsePCA`` on four engines through
@@ -33,6 +33,12 @@ Moran's I / Geary's C, embedding density, LISI, kBET),
 ``rank_genes_groups`` (t-test, wilcoxon, logreg), ``score_genes``,
 ``ingest``, ``magic``, ``scrublet``, ``io`` (h5ad, 10x mtx) and the
 models ``SpectralClustering``, ``diffmap``, ``mnn_correct`` and ``lsi``.
+The last modules: ``models.draw_graph`` (ForceAtlas2, single device and
+``mesh=``), ``models.harmony``, ``models.NMF``, the mesh pipeline stages
+``parallel.mesh_*`` (QC, normalize, log1p, scale, HVG, grouped moments,
+t-test ``rank_genes_groups``) and ``utils.tracing`` (stage timings and
+profiler ranges). With them the port does all that the JAX package does,
+apart from its TPU-only parts (the compile cache, ``interpret=``).
 Every public fit, transform and product runs under
 :func:`precision_policy` (full float32, the caller's flags restored
 after).

@@ -174,21 +174,21 @@ def _log2_fold_change(mean_g, mean_rest, expm1: bool) -> np.ndarray:
 _MOMENT_BLOCK = 1 << 26
 
 
-def _grouped_sums(mc, codes_t: torch.Tensor, n_groups: int, p: int):
-    """Per-(gene, group) sums and sums of squares of the gene-major
-    layout ``mc``, float64 ``[p, G]`` tensors: the JAX package's two
-    one-hot products (``_batch_spmm`` 'sum' / 'sumsq'), as scatter-adds
-    over gene blocks of the payload."""
+def _grouped_sums(ell_data, ell_ids, codes_t: torch.Tensor, n_groups: int, p: int):
+    """Per-(gene, group) sums and sums of squares of a gene-major ELL
+    payload (``ell_ids`` index ``codes_t``), float64 ``[p, G]`` tensors:
+    the JAX package's two one-hot products (``_batch_spmm`` 'sum' /
+    'sumsq'), as scatter-adds over gene blocks of the payload."""
 
-    W = max(mc.ell_width, 1)
+    W = max(ell_data.shape[1], 1)
     step = max(1, _MOMENT_BLOCK // W)
-    dev = mc.ell_data.device
+    dev = ell_data.device
     sums = torch.zeros((p, n_groups), dtype=torch.float64, device=dev)
     sumsq = torch.zeros_like(sums)
     for j0 in range(0, p, step):
         j1 = min(j0 + step, p)
-        d = mc.ell_data[j0:j1].double()
-        bins = codes_t[mc.ell_ids[j0:j1].long()]
+        d = ell_data[j0:j1].double()
+        bins = codes_t[ell_ids[j0:j1].long()]
         sums[j0:j1].scatter_add_(1, bins, d)
         sumsq[j0:j1].scatter_add_(1, bins, d * d)
     return sums, sumsq
@@ -196,11 +196,20 @@ def _grouped_sums(mc, codes_t: torch.Tensor, n_groups: int, p: int):
 
 def _full_moments(m, codes: np.ndarray, n_groups: int):
     """Per-group per-gene (size, mean, Bessel var) with zeros included:
-    float64 host arrays ``[G]``, ``[p, G]``, ``[p, G]``."""
+    float64 host arrays ``[G]``, ``[p, G]``, ``[p, G]``.
 
-    mc = m._layout_for("col")
-    codes_t = torch.as_tensor(codes, dtype=torch.int64, device=m.device)
-    s, sq = _grouped_sums(mc, codes_t, n_groups, m.ncols)
+    The seam of the mesh: a matrix-like ``m`` with a ``_grouped_sums(codes,
+    n_groups)`` method (``parallel.pipeline``'s view of a row-sharded
+    operator) supplies the float64 ``[p, G]`` sums and sums of squares
+    itself; a ``SparseMatrix`` reduces its gene-major layout here."""
+
+    own = getattr(m, "_grouped_sums", None)
+    if own is not None:
+        s, sq = own(codes, n_groups)
+    else:
+        mc = m._layout_for("col")
+        codes_t = torch.as_tensor(codes, dtype=torch.int64, device=m.device)
+        s, sq = _grouped_sums(mc.ell_data, mc.ell_ids, codes_t, n_groups, m.ncols)
     sums, sumsq = s.cpu().numpy(), sq.cpu().numpy()
     sizes = np.bincount(codes, minlength=n_groups).astype(np.float64)
     mean = sums / np.maximum(sizes, 1.0)[None, :]

@@ -83,7 +83,10 @@ def block_lanczos_svd(
     if steps is None:
         kdim = max(16 * k, 384) if tol is not None else max(8 * k, 128)
         steps = max(-(-min(kdim, min(n, p)) // b), 2)
-    m = steps
+    # past ceil(min(n, p) / b) block steps the Krylov space is exhausted:
+    # the next panel QR would factor a residual of rounding noise into
+    # spurious directions (the JAX package then returns NaN eigenvalues)
+    m = min(steps, -(-min(n, p) // b))
     dtype, device = op.dtype, op.device
     eps = float(torch.finfo(dtype).tiny) * 1e8
     op_mv = getattr(op, "mv_precise", op.mv)

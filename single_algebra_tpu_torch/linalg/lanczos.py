@@ -118,7 +118,7 @@ def lanczos_svd(
             max_lanczos_steps(n, p, k) if tol is not None
             else default_lanczos_steps(n, p, k)
         )
-    m = steps
+    m = min(steps, min(n, p))  # no Krylov direction is left past min(n, p)
     if check_every is None:
         check_every = max(k, 32)
     check_every = min(check_every, m)

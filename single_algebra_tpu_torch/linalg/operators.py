@@ -296,6 +296,9 @@ def _bf16_from_bits(a) -> torch.Tensor:
     return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
 
 
+_RED_BLOCK = 1 << 13  # the reduction axis of one cuBLAS call of a bf16 product
+
+
 def _bf16_dot(a: torch.Tensor, b: torch.Tensor, over_rows: bool) -> torch.Tensor:
     """``a @ b`` (``a^T @ b`` when ``over_rows``) of bf16 tensors with
     float32 accumulation and a float32 result, ``a`` being ``[n, p]``.
@@ -305,14 +308,25 @@ def _bf16_dot(a: torch.Tensor, b: torch.Tensor, over_rows: bool) -> torch.Tensor
     first: cuBLAS is slower on narrower operands (``chip_smoke.py``'s
     ``dense_products`` line: on an H100 at 400,000 x 30,000 the 3-column
     operand of a one-column precise product took 19.1 ms unpadded, 8.8 ms
-    padded). Elsewhere row blocks of ``a`` are widened: products of bf16
-    values are exact in float32."""
+    padded); the reduction runs in blocks. Elsewhere row blocks of ``a``
+    are widened: products of bf16 values are exact in float32."""
 
     if a.device.type == "cuda":
         k = b.shape[1]
         if k % 8:
             b = torch.nn.functional.pad(b, (0, 8 - k % 8))
-        return torch.mm(a.T if over_rows else a, b, out_dtype=torch.float32)[:, :k]
+        # the reduction runs in blocks of _RED_BLOCK along its axis, the
+        # float32 partials added: one cuBLAS call over all 400,000 rows of
+        # the smoke's densified path is the less precise (its
+        # dense_products line records both forms), and NMF's
+        # multiplicative updates compound a product's error
+        out = None
+        for j0 in range(0, a.shape[0 if over_rows else 1], _RED_BLOCK):
+            j1 = j0 + _RED_BLOCK
+            part = (torch.mm(a[j0:j1].T, b[j0:j1], out_dtype=torch.float32) if over_rows
+                    else torch.mm(a[:, j0:j1], b[j0:j1], out_dtype=torch.float32))
+            out = part if out is None else out.add_(part)
+        return out[:, :k]
     n, p = a.shape
     step = max((64 << 20) // max(4 * p, 1), 1)
     bf = b.float()

@@ -8,6 +8,9 @@ from .umap import UMAP, UMAPConfig  # noqa: F401
 from .kmeans import KMeans, KMeansBuilder  # noqa: F401
 from .spectral import SpectralClustering, SpectralClusteringBuilder  # noqa: F401
 from .diffmap import diffmap, diffusion_pseudotime, DiffMapResult  # noqa: F401
+from .harmony import harmony, HarmonyResult  # noqa: F401
 from .mnn import mnn_correct, MNNResult  # noqa: F401
+from .draw_graph import draw_graph  # noqa: F401
 from .lsi import lsi, LSIResult  # noqa: F401
+from .nmf import NMF  # noqa: F401
 from . import tsne  # noqa: F401

@@ -1,6 +1,7 @@
 """Device-mesh parallelism of one process: row-sharded operators, sharded
-PCA and sharded Gram PCA (``parallel/pipeline.py`` of the JAX package is
-not ported yet)."""
+PCA, sharded Gram PCA and the mesh-sharded pipeline stages (QC,
+normalization, log1p, scaling, HVG selection, grouped moments and the
+t-test ``rank_genes_groups``)."""
 
 from .sharded import (  # noqa: F401
     Mesh,
@@ -16,3 +17,16 @@ from .pca import (  # noqa: F401
     sharded_pca_fit_transform,
 )
 from .gram import ShardedGram, sharded_gram_pca  # noqa: F401
+from .pipeline import (  # noqa: F401
+    mesh_col_moments,
+    mesh_grouped_moments,
+    mesh_highly_variable_genes,
+    mesh_log1p,
+    mesh_map_stored,
+    mesh_normalize_total,
+    mesh_qc_metrics,
+    mesh_rank_genes_groups,
+    mesh_row_stats,
+    mesh_scale,
+    mesh_sum_row_masked,
+)

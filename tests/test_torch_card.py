@@ -467,3 +467,107 @@ def test_cuda_lsi_auto_takes_the_tiled_kernels(cuda, monkeypatch):
     assert counts["tiled_ell_spmm_t"] > 0 and counts["tiled_ell_rmv_t"] > 0
     want = lsi(SparseMatrix.from_scipy(X, device="cpu"), 4, engine="tiled")
     np.testing.assert_allclose(got.singular_values, want.singular_values, rtol=1e-5)
+
+
+def sbm(sizes, p_in=0.5, p_out=0.01, seed=0):
+    """Stochastic block model adjacency (symmetric, unweighted) and labels."""
+
+    rng = np.random.default_rng(seed)
+    labels = np.repeat(np.arange(len(sizes)), sizes)
+    prob = np.where(labels[:, None] == labels[None, :], p_in, p_out)
+    upper = np.triu(rng.random((len(labels),) * 2) < prob, k=1)
+    return sp.csr_matrix((upper | upper.T).astype(np.float32)), labels
+
+
+@pytest.mark.requires_cuda
+def test_cuda_draw_graph_matches_the_cpu_and_repeats(cuda):
+    from single_algebra_tpu_torch.models import draw_graph
+
+    A, labels = sbm([60, 60, 60], seed=1)
+    init = np.random.default_rng(0).normal(size=(180, 2)).astype(np.float32) * 13.0
+    got = draw_graph(A, n_iter=1, init=init)
+    want = draw_graph(A, n_iter=1, init=init, device="cpu")
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    y1, y2 = draw_graph(A, n_iter=200, seed=3), draw_graph(A, n_iter=200, seed=3)
+    np.testing.assert_array_equal(y1, y2)
+    cents = np.stack([y1[labels == c].mean(0) for c in range(3)])
+    within = np.mean([np.linalg.norm(y1[labels == c] - cents[c], axis=1).mean()
+                      for c in range(3)])
+    d = np.linalg.norm(cents[:, None] - cents[None, :], axis=-1)
+    assert d[np.triu_indices(3, 1)].min() / within > 2.0
+
+
+@pytest.mark.requires_cuda
+def test_cuda_nmf_runs_on_the_densified_payload(cuda):
+    from single_algebra_tpu_torch.models import NMF
+
+    X = clustered_counts(2000, 300, 3)
+    m = SparseMatrix.from_scipy(X)
+    model = NMF(4, max_iter=100, tol=0.0)
+    W = model.fit_transform(m)
+    assert model.engine_ == "DensifiedOperator"
+    assert m._operator_cache["auto"] is m._operator_cache["dense"]  # one payload
+    cpu = NMF(4, max_iter=100, tol=0.0)
+    cpu.fit(SparseMatrix.from_scipy(X, device="cpu"))
+    # the card's randomized init draws its own sketch: compare the fits' losses
+    np.testing.assert_allclose(model.reconstruction_err_, cpu.reconstruction_err_, rtol=1e-2)
+    direct = np.linalg.norm(X.toarray() - W @ model.components_)
+    np.testing.assert_allclose(model.reconstruction_err_, direct, rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_harmony_and_mesh_stages_match_the_cpu(cuda):
+    from single_algebra_tpu_torch.models import harmony as th
+    from single_algebra_tpu_torch.parallel import Mesh, ShardedSpMM, make_mesh, mesh_qc_metrics
+
+    harmony_mod = __import__("importlib").import_module("single_algebra_tpu_torch.models.harmony")
+    rng = np.random.default_rng(4)
+    Z = (rng.normal(0, 6, (3, 8))[rng.integers(0, 3, 600)]
+         + rng.normal(0, 1, (600, 8))).astype(np.float32)
+    batch = np.where(rng.random(600) < 0.5, "a", "b")
+    Z[batch == "b"] += 3.0
+    Y = rng.normal(0, 1, (6, 8)).astype(np.float32)
+    Y /= np.linalg.norm(Y, axis=1, keepdims=True)
+    B, codes = harmony_mod._batch_codes(batch, 600)
+    kw = dict(sigma=0.1, theta=2.0, lam=1.0, max_rounds=3, max_kmeans_iters=20,
+              block_frac=0.05, eps_kmeans=1e-5, eps_harmony=1e-4, seed=0)
+    got = harmony_mod._harmony_from(torch.from_numpy(Z).to(cuda), codes, B,
+                                    torch.from_numpy(Y).to(cuda), **kw)
+    want = harmony_mod._harmony_from(torch.from_numpy(Z), codes, B, torch.from_numpy(Y), **kw)
+    assert got.n_rounds == want.n_rounds
+    assert np.abs(got.embedding - want.embedding).max() <= 1e-4 * np.abs(want.embedding).max()
+    assert th(Z, batch, n_clusters=6, max_rounds=2).embedding.shape == Z.shape
+
+    X = clustered_counts(1000, 120, 5)
+    mito = np.zeros(120, bool)
+    mito[::7] = True
+    card = mesh_qc_metrics(ShardedSpMM.from_matrix(SparseMatrix.from_scipy(X), Mesh((cuda,) * 4)),
+                           qc_vars={"mito": mito})
+    host = mesh_qc_metrics(ShardedSpMM.from_matrix(SparseMatrix.from_scipy(X, device="cpu"),
+                                                   make_mesh(4, device="cpu")),
+                           qc_vars={"mito": mito})
+    for a, b in zip(card, host):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+@pytest.mark.requires_cuda
+def test_cuda_densified_products_reduce_in_blocks(cuda):
+    """The densified engine's precise products on the card reduce in blocks
+    of ``operators._RED_BLOCK`` along the summed axis: both stay within
+    1e-6 of float64 past several blocks."""
+
+    from single_algebra_tpu_torch.linalg.operators import _RED_BLOCK, DensifiedOperator
+
+    rng = np.random.default_rng(6)
+    X = sp.random(3 * _RED_BLOCK + 123, 2 * _RED_BLOCK + 17, density=0.01, format="csr",
+                  dtype=np.float32, random_state=rng,
+                  data_rvs=lambda k: rng.integers(1, 50, k).astype(np.float32))
+    op = DensifiedOperator.from_matrix(SparseMatrix.from_scipy(X))
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    B = torch.rand((X.shape[1], 20), generator=gen, device=cuda)
+    C = torch.rand((X.shape[0], 20), generator=gen, device=cuda)
+    A = torch.from_numpy(X.toarray()).to(cuda).double()
+    for got, want in ((op.mv_precise(B), A @ B.double()), (op.rmv_precise(C), A.T @ C.double())):
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-6

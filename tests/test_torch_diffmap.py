@@ -93,3 +93,17 @@ def test_validation():
     with pytest.raises(ValueError, match="root"):
         diffusion_pseudotime(res, 100)
     assert "DiffMapResult(n=100" in repr(res)
+
+
+def test_a_krylov_budget_past_the_graph_is_capped():
+    # 30 nodes, block 5, lanczos_steps 100: 20 block steps would span 100
+    # directions of a 30-dimensional space. The port caps the block steps
+    # at ceil(30 / 5); the JAX reference keeps the fault (its eigenvalues
+    # are not finite there)
+    W, _ = _graph(n=30, seed=0)
+    got = diffmap(W, n_comps=3, seed=0, lanczos_steps=100, device="cpu")
+    evals = np.linalg.eigh(_dense_transition(W))[0][::-1]
+    assert np.isfinite(got.eigenvalues).all()
+    np.testing.assert_allclose(got.eigenvalues, evals[:3], rtol=0, atol=1e-6)
+    want = jdm.diffmap(W, n_comps=3, seed=0, lanczos_steps=100)
+    assert not np.isfinite(want.eigenvalues).all()
