@@ -314,6 +314,19 @@ and power limit:
    the single card, then 50 iterations (100 before the smoke's time
    cut; finite, separation above 2.0). The forces after 250 iterations
    are those of the public run's state (its iterations split there).
+37. ``jax_layout`` (after ``kernel``): the three kernels on the JAX
+   package's one-level tiled layout, ``sparse.convert.
+   csr_to_tiled_ell_numpy``'s arrays transposed, contiguous and uploaded
+   (``rows_padded_to=512``): the shapes of ``tests/test_pallas_kernels.py``
+   (512 x 300 and 512 x 90 at ``col_tile`` 128, 1,024 x 700 at 256, kp
+   128), then a 16,384 x 2,048 matrix built by ``coo_to_csr_numpy`` with
+   planted groups that take ``wt`` to 40, at ``col_tile`` 128 and kp 64.
+   Densify (float32 out), ``A @ B`` and ``A^T @ C`` run once each with
+   the launch counts from 0 (the counts join the kernels line), then are
+   held against their plain versions and against scipy's float64 dense
+   matrix, ``X @ B`` and ``X.T @ C`` (fail above 1e-5 of the largest
+   value), and launched again (fail unless bit for bit equal); each is
+   timed beside its plain version and its bound.
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (each
 input read once, each output written once) over 3.35 TB/s and its
@@ -322,7 +335,8 @@ densify kernel's ``launches`` are those of the north star's cold fit plus
 the streaming phase's (both streams), the mesh Gram fit's, the mesh
 stream's, the scrna phase's masked fit, the tracing phase's warm fit
 and the NMF gather route's init (a Gram engine); the tiled kernels' those of
-the cold tiled fit, the ``lsi`` fit and the mesh tiled fits. The float64
+the cold tiled fit, the ``lsi`` fit and the mesh tiled fits; all three add
+the ``jax_layout`` phase's counted runs. The float64
 Grams of integer counts are exact: int8 tensor-core products summed in
 float64.
 
@@ -365,6 +379,12 @@ MESH_SCORE_ROWS = 1_000  # the mesh Gram fit's score rows held to the single car
 MESH_STREAM_CHUNKS = 2  # the mesh stream's chunks (cell 10's first 262,144 rows)
 MESH_TSNE_EPOCHS = 250  # the mesh t-SNE's epochs (the single card runs 500)
 KERNEL_REL_FAIL = 1e-5  # spmm / rmv kernel vs plain, relative to max |plain|
+JAX_LAYOUT_CASES = (  # n, p, k, density, col_tile, kp: tests/test_pallas_kernels.py's
+    (512, 300, 16, 0.1, 128, 128),  # shapes, then 16,384 rows with planted (row, tile)
+    (1024, 700, 60, 0.05, 256, 128),  # groups of 37 entries: wt 40
+    (512, 90, 5, 0.3, 128, 128),
+    (16384, 2048, 64, 0.01, 128, 64),
+)
 HVG = 2_000  # the pipeline's mask: the top columns of var_col (stands in for HVG selection)
 NORM_TARGET = 1e4  # normalize's target row sum
 STAT_REL_FAIL = 1e-6  # sum-type statistics vs float64, of the largest |truth|
@@ -379,7 +399,7 @@ SCRNA_HVG, SCRNA_NEIGHBORS, SCRNA_KMEANS = 2_000, 15, 64  # cell 13: examples/sc
 SCRNA_RESOLUTION = 0.5  # Leiden's resolution in the example
 SCRNA_RECALL_QUERIES, SCRNA_F64_ROWS = 20_000, 1_000  # IVF recall queries; float64 kNN rows
 UMAP_EPOCHS, UMAP_REPEAT_EPOCHS = 200, 20  # the fit's epochs; the timed, repeated layout
-ZHENG_ROWS, ZHENG_CHECK_ROWS, ZHENG_SCALE_MAX = 250_000, 2_000, 10.0  # recipe_zheng17 (rows: the time budget)
+ZHENG_ROWS, ZHENG_CHECK_ROWS, ZHENG_SCALE_MAX = 100_000, 2_000, 10.0  # recipe_zheng17 (rows: the time budget)
 HVG_FAIL = 1e-5  # dispersions_norm vs float64, of the largest |truth|
 RECALL_FAIL, RECALL_TIE = 0.95, 1e-5  # IVF recall@15 vs exact; a tie, relative
 EXACT_KNN_F64_FAIL = 1e-4  # the exact float32 kNN's picks vs float64, of the k-th distance
@@ -390,6 +410,7 @@ ZHENG_FAIL = 1e-5  # recipe_zheng17's Z vs float64, of max |Z|
 ARI_FAIL = 0.9  # the blobs' clusterings against the planted labels
 KMEANS_MESH_FAIL = 1e-5  # mesh Lloyd vs the single card's, of max |center|
 INT8_GRAM_ROWS, INT8_GRAM_COLS = 16_384, 8_192  # the exact integer Gram's row chunk, column block
+F64_GRAM_COLS = 4_096  # the float64 Gram's column block
 DE_MOMENT_FAIL = 1e-6  # grouped means / variances vs float64, of the largest |truth|
 DE_T_FAIL = 1e-5  # t vs float64, of max |t|
 DE_Z_FAIL, DE_Z_GENES = 1e-4, 64  # Wilcoxon z vs float64 ranks, of max(1, |z|); genes checked
@@ -616,6 +637,152 @@ def phase_kernel(torch) -> dict:
     return dict(max_abs_err=worst, slab_widths=sorted({wt for _, wt in slab_cases}), **headline)
 
 
+def _jax_layout_matrix(n, p, density, seed):
+    """CSR arrays of a seeded matrix: ``tests/test_pallas_kernels.py``'s recipe
+    up to 1,024 rows; past that random COO triplets plus 37 entries in one
+    128-column tile of each of 8 rows, through ``coo_to_csr_numpy`` (the
+    duplicate pairs summed), so the densest (row, tile) group pads to wt 40."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from single_algebra_tpu_torch.sparse import convert as cv
+
+    rng = np.random.default_rng(seed)
+    if n <= 1024:
+        X = sp.random(n, p, density=density, format="csr", dtype=np.float64,
+                      random_state=rng, data_rvs=rng.random).astype(np.float32)
+        return X.indptr.astype(np.int64), X.indices.astype(np.int32), X.data
+    nnz = int(n * p * density)
+    rows = [rng.integers(0, n, nnz)]
+    cols = [rng.integers(0, p, nnz)]
+    for r in rng.choice(n, 8, replace=False):
+        tile = int(rng.integers(0, p // 128))
+        rows.append(np.full(37, r))
+        cols.append(tile * 128 + rng.choice(128, 37, replace=False))
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = rng.random(len(rows)).astype(np.float32)
+    return cv.coo_to_csr_numpy(rows, cols, vals, n, p)
+
+
+def phase_jax_layout(torch, densify_result: dict, tiled_result: dict) -> dict:
+    """The three kernels on ``csr_to_tiled_ell_numpy``'s layout (the JAX
+    package's Pallas kernels' own), at the JAX Pallas tests' shapes and one
+    16,384-row case past wt 32 at col_tile 128. The kernels run once per
+    case with the launch counts from 0; then each result is held to its
+    plain version and to scipy's float64 result (``KERNEL_REL_FAIL`` of the
+    largest value), a second launch must give the same bits, and each
+    kernel is timed (CUDA events) beside its plain version and its bound.
+    The worst abs errors join ``densify_result`` and ``tiled_result``.
+    -> the counted launches by kernel."""
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    from single_algebra_tpu_torch.ops import cuda_lib
+    from single_algebra_tpu_torch.ops.densify import (
+        tiled_ell_densify_t, tiled_ell_densify_t_plain,
+    )
+    from single_algebra_tpu_torch.ops.spmm_kernel import (
+        tiled_ell_rmv_t, tiled_ell_rmv_t_plain, tiled_ell_spmm_t, tiled_ell_spmm_t_plain,
+    )
+    from single_algebra_tpu_torch.sparse import convert as cv
+
+    dev = torch.device("cuda")
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for i, (n, p, k, density, ct, kp) in enumerate(JAX_LAYOUT_CASES):
+        t0 = time.perf_counter()
+        indptr, indices, data = _jax_layout_matrix(n, p, density, seed=i)
+        td, tl, wt, nt = cv.csr_to_tiled_ell_numpy(indptr, indices, data, n, p, col_tile=ct,
+                                                   rows_padded_to=512)
+        host_s = time.perf_counter() - t0
+        R = td.shape[0]
+        rng = np.random.default_rng(100 + i)
+        B = rng.standard_normal((p, k)).astype(np.float32)
+        C = rng.standard_normal((n, k)).astype(np.float32)
+        Bt = np.zeros((kp, nt * ct), np.float32)
+        Bt[:k, :p] = B.T
+        Ct = np.zeros((kp, R), np.float32)
+        Ct[:k, :n] = C.T
+        X = sp.csr_matrix((data.astype(np.float64), indices, indptr), shape=(n, p))
+        cases.append(dict(
+            case=f"{n}x{p}_ct{ct}", n=n, p=p, k=k, kp=kp, ct=ct, wt=wt, nt=nt, R=R,
+            nnz=len(indices), host_s=host_s, X=X, B=B, C=C, td=put(td.T), tl=put(tl.T),
+            Bt=put(Bt), Ct=put(Ct)))
+    if max(c["wt"] for c in cases) <= 32 or cases[-1]["ct"] != 128:
+        raise AssertionError(f"no case past wt 32 at col_tile 128: {[c['wt'] for c in cases]}")
+
+    def kernels(c):
+        kw = dict(wt=c["wt"], ntiles=c["nt"], col_tile=c["ct"], block_rows=512)
+        dkw = dict(wt=c["wt"], ntiles=c["nt"], col_tile=c["ct"], out_dtype=torch.float32)
+        return (
+            ("tiled_ell_densify_t", lambda: tiled_ell_densify_t(c["td"], c["tl"], **dkw),
+             lambda: tiled_ell_densify_t_plain(c["td"], c["tl"], **dkw)),
+            ("tiled_ell_spmm_t", lambda: tiled_ell_spmm_t(c["td"], c["tl"], c["Bt"], **kw),
+             lambda: tiled_ell_spmm_t_plain(c["td"], c["tl"], c["Bt"], **kw)),
+            ("tiled_ell_rmv_t", lambda: tiled_ell_rmv_t(c["td"], c["tl"], c["Ct"], **kw),
+             lambda: tiled_ell_rmv_t_plain(c["td"], c["tl"], c["Ct"], **kw)),
+        )
+
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    for c in cases:
+        c["out"] = {name: fn() for name, fn, _ in kernels(c)}
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    if any(launches[name] != len(cases) for name in launches):
+        raise AssertionError(f"jax_layout: {launches} launches, expected {len(cases)} each")
+
+    for c in cases:
+        X, n, p, k = c["X"], c["n"], c["p"], c["k"]
+        truth = {  # scipy, float64, in each kernel's orientation
+            "tiled_ell_densify_t": (X.T.toarray(), (p, n)),
+            "tiled_ell_spmm_t": ((X @ c["B"].astype(np.float64)).T, (k, n)),
+            "tiled_ell_rmv_t": (X.T @ c["C"].astype(np.float64), (p, k)),
+        }
+        payload = c["td"].numel() * 8  # float32 values + int32 ids
+        flops = 2.0 * c["nnz"] * c["kp"]
+        moved = {
+            "tiled_ell_densify_t": (payload + c["nt"] * c["ct"] * c["R"] * 4, 0.0),
+            "tiled_ell_spmm_t": (payload + c["Bt"].numel() * 4 + c["kp"] * c["R"] * 4, flops),
+            "tiled_ell_rmv_t": (payload + c["Ct"].numel() * 4 + c["nt"] * c["ct"] * c["kp"] * 4,
+                                flops),
+        }
+        for name, fn, plain in kernels(c):
+            got = c["out"][name]
+            want = plain()
+            ref, (a, b) = truth[name]
+            top = max(float(want.abs().max()), 1e-30)
+            abs_err = float((got - want).abs().max())
+            ref_err = float(np.abs(got[:a, :b].double().cpu().numpy() - ref).max())
+            ref_rel = ref_err / max(float(np.abs(ref).max()), 1e-30)
+            repeat_equal = bool(torch.equal(fn(), got))
+            ms, plain_ms = _time_ms(torch, fn, 10), _time_ms(torch, plain, 2)
+            emit("jax_layout", kernel=name, case=c["case"], n=n, p=p, rows_padded=c["R"],
+                 col_tile=c["ct"], wt=c["wt"], ntiles=c["nt"], kp=c["kp"], nnz=c["nnz"],
+                 host_layout_s=c["host_s"], rel_err=abs_err / top, max_abs_err=abs_err,
+                 equals_plain=bool(torch.equal(got, want)), scipy_rel_err=ref_rel,
+                 repeat_equal=repeat_equal, ms=ms, plain_ms=plain_ms, **bound(*moved[name]))
+            if not (abs_err <= KERNEL_REL_FAIL * top and ref_rel <= KERNEL_REL_FAIL
+                    and repeat_equal):
+                raise AssertionError(
+                    f"jax_layout {name} {c['case']}: rel err {abs_err / top} vs plain, "
+                    f"{ref_rel} vs scipy, repeat_equal={repeat_equal}")
+            if name == "tiled_ell_densify_t":
+                entry = densify_result
+            else:
+                entry = tiled_result.setdefault(name, dict(max_abs_err=0.0))
+            entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+            del want
+        del c["out"], c["td"], c["tl"], c["Bt"], c["Ct"]
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_gram_tiers(torch) -> None:
     """The three Gram tiers on the card (blocked path, pp > 4096) against a
     float64 host Gram of the same matrix."""
@@ -676,13 +843,25 @@ def _int8_exact(X) -> bool:
             and bool(np.all(d == np.round(d))))
 
 
+def _mirror_upper(G, block: int) -> None:
+    """Fill the part of the symmetric ``G`` below its diagonal blocks of
+    ``block`` columns from the part above them."""
+
+    p = G.shape[0]
+    for c0 in range(0, p, block):
+        c1 = min(c0 + block, p)
+        G[c1:, c0:c1] = G[c0:c1, c1:].T
+
+
 def f64_gram(torch, X, chunk: int = 4096, device="cuda"):
     """(G, mu): the float64 Gram ``X^T X`` of CSR row chunks and the column
     means, on the card and independent of the port. Integer values in
     [-127, 127] (counts) take the int8 tensor cores: ``torch._int_mm`` of
     16,384-row chunks gives exact int32 partials (16,384 x 127^2 < 2^31),
     summed in float64 (exact below 2^53): the exact Gram, ~20x faster than
-    the float64 GEMMs that other values take."""
+    the float64 GEMMs that other values take. Either way only the column
+    blocks on and above the diagonal are multiplied; the rest is their
+    transpose."""
 
     import gc
 
@@ -699,14 +878,18 @@ def f64_gram(torch, X, chunk: int = 4096, device="cuda"):
             At[:, :rows] = D.T.to(torch.int8)
             del D
             for c0 in range(0, p, INT8_GRAM_COLS):
-                G[:, c0:c0 + INT8_GRAM_COLS] += torch._int_mm(
-                    At, At[c0:c0 + INT8_GRAM_COLS].T).double()
+                c1 = min(c0 + INT8_GRAM_COLS, p)
+                G[:c1, c0:c1] += torch._int_mm(At[:c1], At[c0:c1].T).double()
             del At
+        _mirror_upper(G, INT8_GRAM_COLS)
         return G, colsum / n
     for r0 in range(0, n, chunk):
         D = csr_dense_rows(torch, X, r0, min(r0 + chunk, n), torch.float64, device)
-        G.addmm_(D.T, D)
+        for c0 in range(0, p, F64_GRAM_COLS):
+            c1 = min(c0 + F64_GRAM_COLS, p)
+            G[c0:c1, c0:].addmm_(D[:, c0:c1].T, D[:, c0:])
         colsum += D.sum(dim=0)
+    _mirror_upper(G, F64_GRAM_COLS)
     return G, colsum / n
 
 
@@ -862,24 +1045,63 @@ def phase_idle(torch, eng, builder, m) -> None:
          warm_fit_transform=device_idle(torch, lambda: builder().build().fit_transform(m)))
 
 
-def phase_main_path(torch, held_widths) -> tuple:
+def _generate_counts(n: int, p: int):
+    """``cluster_counts_big(n, p)`` as every cell draws it (64 clusters, seed
+    7, density 0.01) -> (X, seconds)."""
+
+    sys.path.insert(0, ROOT)
+    from benchmarks._datagen import cluster_counts_big
+
+    t0 = time.perf_counter()
+    X = cluster_counts_big(n, p, n_clusters=64, seed=7, density=0.01)
+    return X, time.perf_counter() - t0
+
+
+class CountsWorker:
+    """The cells' count matrices, drawn one after another on one worker
+    thread while the phases before them run (the draws are numpy and scipy
+    work, much of it outside the interpreter lock; a worker process would
+    hand each matrix back through a pipe, copied under the lock).
+    ``get(n, p)`` -> ``(X, gen_s, wait_s)``: the worker's seconds and the
+    phase's wait. A shape not queued (a phase run alone) is drawn on the
+    calling thread."""
+
+    def __init__(self, shapes=()):
+        self._pool, self._queued = None, {}
+        if shapes:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(1)
+            self._queued = {shape: self._pool.submit(_generate_counts, *shape)
+                            for shape in shapes}
+
+    def get(self, n: int, p: int):
+        t0 = time.perf_counter()
+        queued = self._queued.pop((n, p), None)
+        X, gen_s = queued.result() if queued is not None else _generate_counts(n, p)
+        return X, gen_s, time.perf_counter() - t0
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_main_path(torch, held_widths, data=None) -> tuple:
     """The main path once, through the user-facing entry points.
     ``held_widths``: the bucket widths at which the ``kernel`` phase held
-    the densify kernel against its plain version at the slab shape."""
+    the densify kernel against its plain version at the slab shape;
+    ``data``: the ``CountsWorker`` holding its matrix."""
 
     import numpy as np
 
     sys.path.insert(0, ROOT)
-    from benchmarks._datagen import cluster_counts_big
     from single_algebra_tpu_torch import SparseMatrix, SparsePCABuilder
     from single_algebra_tpu_torch.linalg.gram import GramPCAEngine, _slab_for
     from single_algebra_tpu_torch.ops import densify
     from single_algebra_tpu_torch.types import PowerIterationNormalizer, SVDMethod
 
     n, p, k = N_CELLS, N_GENES, K
-    t0 = time.perf_counter()
-    X = cluster_counts_big(n, p, n_clusters=64, seed=7, density=0.01)
-    gen_s = time.perf_counter() - t0
+    X, gen_s, gen_wait_s = (data or CountsWorker()).get(n, p)
     t0 = time.perf_counter()
     m = SparseMatrix.from_scipy(X, device="cuda")
     from_scipy_s = time.perf_counter() - t0
@@ -901,7 +1123,8 @@ def phase_main_path(torch, held_widths) -> tuple:
     eng = m._operator_cache.get("auto")
     ev = np.asarray(pca.explained_variance_, np.float64)
     # read after the cold window: the cold fit made and cached every gate
-    emit("data", n=n, p=p, nnz=m.nnz, gen_s=gen_s, from_scipy_s=from_scipy_s,
+    emit("data", n=n, p=p, nnz=m.nnz, gen_s=gen_s, gen_wait_s=gen_wait_s,
+         from_scipy_s=from_scipy_s,
          int8_exact=m.values_int8_exact())
 
     t0 = time.perf_counter()
@@ -1026,7 +1249,7 @@ def phase_dense_products(torch, op) -> None:
             raise AssertionError(f"dense mv_precise rel err {line['mv_precise_rel_err']} > 1e-6")
 
 
-def phase_dense_path(torch) -> int:
+def phase_dense_path(torch, data=None) -> int:
     """The densified engine's path once, through the user-facing entry
     points, at 400,000 x 30,000: 'auto' must build ``DensifiedOperator``.
     (a) ``SparsePCABuilder``'s defaults (Lanczos, adaptive, tolerance 1e-6), cold
@@ -1044,7 +1267,6 @@ def phase_dense_path(torch) -> int:
     import numpy as np
     import scipy.sparse as sp
 
-    from benchmarks._datagen import cluster_counts_big
     from single_algebra_tpu_torch import SparseMatrix, SparsePCABuilder
     from single_algebra_tpu_torch.linalg.operators import CenteredOperator, DensifiedOperator
     from single_algebra_tpu_torch.linalg.svd import gaussian_sketch, randomized_svd
@@ -1052,9 +1274,7 @@ def phase_dense_path(torch) -> int:
     from single_algebra_tpu_torch.types import PowerIterationNormalizer, SVDMethod
 
     n, p, k = DENSE_CELLS, DENSE_GENES, K
-    t0 = time.perf_counter()
-    X = cluster_counts_big(n, p, n_clusters=64, seed=7, density=0.01)
-    gen_s = time.perf_counter() - t0
+    X, gen_s, gen_wait_s = (data or CountsWorker()).get(n, p)
 
     def fit(make, m):
         torch.cuda.synchronize()
@@ -1087,7 +1307,8 @@ def phase_dense_path(torch) -> int:
     del T_a, T_a2
     pca_c, _, warm_c = fit(default().lanczos_block(8), m)
     emit("dense_path", engine_requested="auto", engine=type(op).__name__, n=n, p=p, nnz=m.nnz,
-         gen_s=gen_s, from_scipy_s=from_scipy_s, lo_present=op.lo is not None,
+         gen_s=gen_s, gen_wait_s=gen_wait_s, from_scipy_s=from_scipy_s,
+         lo_present=op.lo is not None,
          payload_gb=op.hi.numel() * 2 / 1e9, engine_build_s=op.build_seconds,
          default_builder=dict(cold_fit_transform_s=cold_a, warm_fit_transform_s=warm_a,
                               lanczos_steps=pca_a.lanczos_steps_taken_,
@@ -1293,8 +1514,7 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
     emits a ``kernel_spmm`` and a ``kernel_rmv`` line, fails above
     KERNEL_REL_FAIL or where a repeated launch differs, and folds the
     worst abs error into ``result``. The plain version's time is that of
-    the comparison call itself (CUDA events; it takes seconds on the
-    path's payload, so it runs once)."""
+    the comparison call itself (CUDA events; it runs once)."""
 
     from single_algebra_tpu_torch.ops.spmm_kernel import (
         tiled_ell_rmv_t, tiled_ell_rmv_t_plain, tiled_ell_spmm_t, tiled_ell_spmm_t_plain,
@@ -1428,7 +1648,7 @@ class Csr64Operator:
         return self.at @ C
 
 
-def phase_tiled_path(torch, kernel_result: dict) -> dict:
+def phase_tiled_path(torch, kernel_result: dict, data=None) -> dict:
     """The tiled engine's path once, through the user-facing entry points;
     -> the kernels' launch counts in the cold fit and ``lsi``'s, and in the
     mesh tiled fits on the same matrix. The full-size kernel comparisons on the
@@ -1436,7 +1656,6 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
 
     import numpy as np
 
-    from benchmarks._datagen import cluster_counts_big
     from single_algebra_tpu_torch import SparseMatrix, SparsePCABuilder
     from single_algebra_tpu_torch.linalg.operators import CenteredOperator, TiledSparseOperator
     from single_algebra_tpu_torch.linalg.svd import gaussian_sketch, randomized_svd
@@ -1447,9 +1666,7 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     from single_algebra_tpu_torch.types import PowerIterationNormalizer, SVDMethod
 
     n, p, k = TILED_CELLS, TILED_GENES, K
-    t0 = time.perf_counter()
-    X = cluster_counts_big(n, p, n_clusters=64, seed=7, density=0.01)
-    gen_s = time.perf_counter() - t0
+    X, gen_s, gen_wait_s = (data or CountsWorker()).get(n, p)
     t0 = time.perf_counter()
     m = SparseMatrix.from_scipy(X, device="cuda")
     from_scipy_s = time.perf_counter() - t0
@@ -1499,7 +1716,8 @@ def phase_tiled_path(torch, kernel_result: dict) -> dict:
     wt, nt, ct, br, ovw, ovtw = op.meta
     emit(
         "tiled_path", engine_requested="auto", engine=type(op).__name__, n=n, p=p,
-        nnz=m.nnz, gen_s=gen_s, from_scipy_s=from_scipy_s, wt=wt, ntiles=nt, col_tile=ct,
+        nnz=m.nnz, gen_s=gen_s, gen_wait_s=gen_wait_s, from_scipy_s=from_scipy_s, wt=wt,
+        ntiles=nt, col_tile=ct,
         rows_padded=op.tdata.shape[1], ovw=ovw, ovtw=ovtw, ovtw_plan=ovtw_plan,
         n_overflow=n_over, payload="bf16" if op._bf16 else str(op.tdata.dtype).split(".")[-1],
         lo_present=op.tdata_lo is not None, payload_bytes_f32_accounting=(
@@ -4820,8 +5038,14 @@ def main() -> int:
     # the entry points enter the policy themselves; the phases that call
     # the port's internals directly (Gram tiers, breakdowns, products) run
     # under it too
-    with precision_policy():
-        return _phases(torch)
+    # the three cells' count matrices, drawn in a worker while the card works
+    data = CountsWorker([(N_CELLS, N_GENES), (DENSE_CELLS, DENSE_GENES),
+                         (TILED_CELLS, TILED_GENES)])
+    try:
+        with precision_policy():
+            return _phases(torch, data)
+    finally:
+        data.close()
 
 
 def timed(name: str, fn, *args):
@@ -4834,15 +5058,17 @@ def timed(name: str, fn, *args):
     return out
 
 
-def _phases(torch) -> int:
+def _phases(torch, data) -> int:
     t0 = time.perf_counter()
     phase_env(torch)
     timed("build", phase_build)
     kern = timed("kernel", phase_kernel, torch)
+    tiled_kern = {}
+    layout_launches = timed("jax_layout", phase_jax_layout, torch, kern, tiled_kern)
     timed("gram_tiers", phase_gram_tiers, torch)
     held = kern.pop("slab_widths")
     launches, kern["library_ms"], X, ev_true, single = timed("main_path", phase_main_path,
-                                                            torch, held)
+                                                            torch, held, data)
     torch.cuda.empty_cache()
     launches += timed("mesh_cell1", phase_mesh_cell1, torch, X, single, ev_true, held)
     del single
@@ -4870,12 +5096,12 @@ def _phases(torch) -> int:
     timed("similarity", phase_similarity, torch, ctx.pop("T"))
     del ctx
     torch.cuda.empty_cache()
-    launches += timed("dense_path", phase_dense_path, torch)
+    launches += timed("dense_path", phase_dense_path, torch, data)
     torch.cuda.empty_cache()
-    tiled_kern = {}
     timed("kernel_tiled", phase_kernel_tiled, torch, tiled_kern)
-    tiled_launches, mesh_launches = timed("tiled_path", phase_tiled_path, torch, tiled_kern)
-    tiled_launches = {name: tiled_launches[name] + mesh_launches[name] for name in tiled_launches}
+    tiled_launches, mesh_launches = timed("tiled_path", phase_tiled_path, torch, tiled_kern, data)
+    tiled_launches = {name: tiled_launches[name] + mesh_launches[name] + layout_launches[name]
+                      for name in tiled_launches}
     torch.cuda.empty_cache()
     timed("tsne", phase_tsne, torch)
     blobs = timed("scrna_blobs", phase_scrna_blobs, torch)
@@ -4884,6 +5110,7 @@ def _phases(torch) -> int:
     timed("analysis_blobs", phase_analysis_blobs, torch, blobs)
     del blobs
     emit("seconds", of="smoke", s=time.perf_counter() - t0)
+    launches += layout_launches["tiled_ell_densify_t"]
     kernels = [dict(name="tiled_ell_densify_t", source=KERNEL_SRC, line=221,
                     launches=launches, **kern)]
     for name, line in (("tiled_ell_spmm_t", 135), ("tiled_ell_rmv_t", 299)):

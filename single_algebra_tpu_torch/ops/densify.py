@@ -111,17 +111,24 @@ def tiled_ell_densify_t_plain(
     """Plain PyTorch version: the one-hot select-add over the ``wt`` slots
     in slot order (``_onehot_densify`` of the TPU kernel), accumulated in
     float32 (float64 for a float64 ``out_dtype``) and cast once. Runs on
-    any device."""
+    any device.
+
+    Each slot's select-add is one scatter-add of its values into their
+    columns: the one-hot form adds +0 to every other column, which leaves
+    a sum that starts at +0 unchanged, so both give the same bits. An id
+    outside ``[0, col_tile)`` selects no column: it adds +0 to column 0."""
 
     rows = _check(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows)
     acc = torch.float64 if out_dtype == torch.float64 else torch.float32
     td = tdata[:, row_offset:row_offset + rows].to(acc).reshape(ntiles, wt, rows)
     tl = tlocal[:, row_offset:row_offset + rows].reshape(ntiles, wt, rows)
-    col = torch.arange(col_tile, device=tdata.device, dtype=torch.int32).view(1, -1, 1)
     dense = torch.zeros((ntiles, col_tile, rows), dtype=acc, device=tdata.device)
     zero = torch.zeros((), dtype=acc, device=tdata.device)
     for w in range(wt):
-        dense += torch.where(col == tl[:, w:w + 1], td[:, w:w + 1], zero)
+        ids = tl[:, w:w + 1]
+        inside = (ids >= 0) & (ids < col_tile)
+        dense.scatter_add_(1, torch.where(inside, ids, 0).long(),
+                           torch.where(inside, td[:, w:w + 1], zero))
     dense = dense.reshape(ntiles * col_tile, rows)
     if out_dtype == torch.int8:
         # saturating, NaN -> 0: XLA's float -> int8 convert

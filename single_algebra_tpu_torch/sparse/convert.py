@@ -7,11 +7,15 @@ reuses them as they are and its payloads are byte-identical to the JAX
 package's. The tiled payload layout is described in ``ops/densify.py``.
 ``csr_to_ell_numpy`` sends float32 inputs to the native converter, as
 the JAX package does, and keeps numpy for float64 and when no native
-library is present; both give the same arrays.
+library is present; both give the same arrays. ``coo_to_csr_numpy``,
+``slab_row_ranges`` and the one-level ``csr_to_tiled_ell_numpy`` complete
+the JAX module's surface; the engines build the two-level layout
+(``csr_to_tiled_ell_split_numpy``) instead of the last.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -120,6 +124,104 @@ def csr_transpose_numpy(
     t = sp.csr_matrix((data, indices, indptr), shape=(n_rows, n_cols)).tocsc()
     return (t.indptr.astype(np.int64), t.indices.astype(np.int32, copy=False),
             t.data.astype(data.dtype, copy=False))
+
+
+def coo_to_csr_numpy(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_rows: int,
+    n_cols: int,
+    sum_duplicates: bool = True,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """COO triplets -> CSR with sorted columns (duplicates summed)."""
+
+    import scipy.sparse as sp
+
+    coo = sp.coo_matrix((vals, (rows, cols)), shape=(n_rows, n_cols))
+    csr = coo.tocsr()
+    if sum_duplicates:
+        csr.sum_duplicates()
+    csr.sort_indices()
+    return (
+        csr.indptr.astype(np.int64),
+        csr.indices.astype(np.int32),
+        csr.data,
+    )
+
+
+def slab_row_ranges(n_rows: int, n_slabs: int) -> list[tuple[int, int]]:
+    """Split rows into ``n_slabs`` contiguous slabs of near-equal padded size.
+
+    Each slab is a multiple of the sublane (8) except possibly the last,
+    so device shards tile cleanly.
+    """
+
+    per = round_up(int(math.ceil(n_rows / n_slabs)), _SUBLANE)
+    ranges = []
+    start = 0
+    for _ in range(n_slabs):
+        end = min(start + per, n_rows)
+        ranges.append((start, end))
+        start = end
+    return ranges
+
+
+def csr_to_tiled_ell_numpy(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    data: np.ndarray,
+    n_rows: int,
+    n_cols: int,
+    col_tile: int = 256,
+    rows_padded_to: int = 256,
+) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """Column-tiled padded ELL: the tiled kernels' layout, row-major.
+
+    Entries are grouped per (row, column-tile); each group is padded to the
+    global per-tile width ``wt``. Returns ``(tdata [R, ntiles*wt],
+    tlocal [R, ntiles*wt], wt, ntiles)`` where ``tlocal`` holds the
+    within-tile column offset (0..col_tile-1) and padding slots carry
+    ``v=0, lid=0`` (they accumulate exact zeros into dense-tile column 0).
+
+    The kernels of ``ops/densify.py`` and ``ops/spmm_kernel.py`` take the
+    transpose, ``[ntiles*wt, R]``, contiguous: ``np.ascontiguousarray(tdata.T)``.
+    """
+
+    indptr = np.asarray(indptr, dtype=np.int64)
+    ntiles = max(-(-n_cols // col_tile), 1)
+    rows_padded = max(round_up(n_rows, rows_padded_to), rows_padded_to)
+    nnz = len(indices)
+    if nnz == 0 or n_rows == 0:
+        wt = 8
+        shape = (rows_padded, ntiles * wt)
+        return (
+            np.zeros(shape, data.dtype),
+            np.zeros(shape, np.int32),
+            wt,
+            ntiles,
+        )
+
+    row_nnz = np.diff(indptr)
+    row_of = np.repeat(np.arange(n_rows, dtype=np.int64), row_nnz)
+    tile_of = indices.astype(np.int64) // col_tile
+    lid_of = (indices.astype(np.int64) % col_tile).astype(np.int32)
+
+    # rank of each entry within its (row, tile) group; groups are contiguous
+    # because CSR columns are sorted within rows
+    key = row_of * ntiles + tile_of
+    first = np.ones(nnz, dtype=bool)
+    first[1:] = key[1:] != key[:-1]
+    group_start = np.maximum.accumulate(np.where(first, np.arange(nnz), 0))
+    rank = np.arange(nnz) - group_start
+
+    wt = int(round_up(int(rank.max()) + 1, 8))
+    tdata = np.zeros((rows_padded, ntiles * wt), data.dtype)
+    tlocal = np.zeros((rows_padded, ntiles * wt), np.int32)
+    slot = tile_of * wt + rank
+    tdata[row_of, slot] = data
+    tlocal[row_of, slot] = lid_of
+    return tdata, tlocal, wt, ntiles
 
 
 def tiled_split_widths(

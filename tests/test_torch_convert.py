@@ -186,3 +186,109 @@ def test_csr_to_ell_native_route_matches_numpy(monkeypatch, rows_padded):
     assert nat[0].shape == (R, width) and (nat[2][n:] == 0).all()
     assert (nat[2][:n] == width).any()
     _assert_same(nat, jcv.csr_to_ell_numpy(indptr, indices, data, n, width, rows_padded))
+
+
+def _coo(seed, n=40, p=25, nnz=300):
+    """COO triplets in random order with repeated (row, col) pairs."""
+
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n, nnz).astype(np.int32)
+    cols = rng.integers(0, p, nnz).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return rows, cols, vals, n, p
+
+
+@pytest.mark.parametrize("sum_duplicates", [True, False])
+def test_coo_to_csr_numpy(sum_duplicates):
+    rows, cols, vals, n, p = _coo(12)
+    assert len(set(zip(rows.tolist(), cols.tolist()))) < len(rows)  # duplicates
+    got = tcv.coo_to_csr_numpy(rows, cols, vals, n, p, sum_duplicates)
+    _assert_same(got, jcv.coo_to_csr_numpy(rows, cols, vals, n, p, sum_duplicates))
+    assert got[0].dtype == np.int64 and got[1].dtype == np.int32
+    assert got[2].dtype == np.float32
+    want = sp.coo_matrix((vals.astype(np.float64), (rows, cols)), shape=(n, p)).toarray()
+    np.testing.assert_allclose(
+        sp.csr_matrix((got[2], got[1], got[0]), shape=(n, p)).toarray(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_rows, n_slabs", [(1001, 8), (130, 3), (5, 8), (64, 8), (0, 2)])
+def test_slab_row_ranges(n_rows, n_slabs):
+    got = tcv.slab_row_ranges(n_rows, n_slabs)
+    assert got == jcv.slab_row_ranges(n_rows, n_slabs)
+    assert len(got) == n_slabs and got[-1][1] == n_rows
+    assert all(a % 8 == 0 or a == n_rows for a, _ in got)  # empty slabs trail
+
+
+@pytest.mark.parametrize("col_tile", [128, 256])
+@pytest.mark.parametrize("case", ["heavy", "plain", "empty"])
+def test_csr_to_tiled_ell_numpy(col_tile, case):
+    if case == "empty":
+        ip, ix, dt = np.zeros(11, np.int64), np.zeros(0, np.int32), np.zeros(0, np.float32)
+        n, p = 10, 300
+    else:
+        ip, ix, dt, X = _csr(13, heavy_rows=case == "heavy")
+        n, p = X.shape
+    got = tcv.csr_to_tiled_ell_numpy(ip, ix, dt, n, p, col_tile, 512)
+    _assert_same(got, jcv.csr_to_tiled_ell_numpy(ip, ix, dt, n, p, col_tile, 512))
+    td, tl, wt, ntiles = got
+    assert td.shape == tl.shape == (max(tcv.round_up(n, 512), 512), ntiles * wt)
+    assert ntiles == -(-p // col_tile) and tl.dtype == np.int32 and td.dtype == dt.dtype
+    if case == "empty":
+        assert wt == 8 and not td.any() and not tl.any()
+    else:
+        assert (tl[td == 0] == 0).all()  # padding slots are (0, 0)
+        groups = max(np.bincount(ix[ip[r]:ip[r + 1]] // col_tile).max() for r in range(n)
+                     if ip[r + 1] > ip[r])
+        assert wt == tcv.round_up(int(groups), 8)
+
+
+@pytest.mark.parametrize(
+    "n,p,k,density,ct",
+    [(512, 300, 16, 0.1, 128), (1024, 700, 60, 0.05, 256), (512, 90, 5, 0.3, 128)],
+)
+def test_tiled_layout_through_plain_kernels_and_pallas(n, p, k, density, ct):
+    """``csr_to_tiled_ell_numpy``'s arrays, transposed, through the port's
+    plain kernel versions and the Pallas kernels in interpret mode (the
+    shapes of tests/test_pallas_kernels.py): densify, ``A @ B`` and
+    ``A^T @ C`` agree within 1e-5 of the largest value, and with scipy."""
+
+    import jax.numpy as jnp
+
+    from single_algebra_tpu.ops.pallas import spmm_kernel as pk
+    from single_algebra_tpu_torch.ops.densify import tiled_ell_densify_t_plain
+    from single_algebra_tpu_torch.ops.spmm_kernel import (
+        tiled_ell_rmv_t_plain, tiled_ell_spmm_t_plain,
+    )
+
+    rng = np.random.default_rng(0)
+    X = sp.random(n, p, density=density, format="csr", dtype=np.float64,
+                  random_state=rng, data_rvs=rng.random).astype(np.float32)
+    td, tl, wt, nt = tcv.csr_to_tiled_ell_numpy(X.indptr, X.indices, X.data, n, p, ct, 512)
+    tdt, tlt = np.ascontiguousarray(td.T), np.ascontiguousarray(tl.T)
+    R, kp = td.shape[0], 128
+    Bt = np.zeros((kp, nt * ct), np.float32)
+    Bt[:k, :p] = rng.standard_normal((k, p))
+    Ct = np.zeros((kp, R), np.float32)
+    Ct[:k, :n] = rng.standard_normal((k, n))
+    kw = dict(wt=wt, ntiles=nt, col_tile=ct, block_rows=512)
+    jx = dict(interpret=True, **kw)
+    ttd, ttl = torch.from_numpy(tdt), torch.from_numpy(tlt)
+
+    dense = tiled_ell_densify_t_plain(ttd, ttl, wt=wt, ntiles=nt, col_tile=ct,
+                                      out_dtype=torch.float32).numpy()
+    dense_j = np.asarray(pk.tiled_ell_densify_t(jnp.asarray(tdt), jnp.asarray(tlt),
+                                                out_dtype=jnp.float32, **jx))
+    np.testing.assert_array_equal(dense, dense_j)
+    np.testing.assert_array_equal(dense[:p, :n], X.toarray().T)
+
+    for plain, pallas, op, ref in (
+        (tiled_ell_spmm_t_plain, pk.tiled_ell_spmm_t, Bt, (X @ Bt[:k, :p].T.astype(np.float64)).T),
+        (tiled_ell_rmv_t_plain, pk.tiled_ell_rmv_t, Ct, X.T @ Ct[:k, :n].T.astype(np.float64)),
+    ):
+        got = plain(ttd, ttl, torch.from_numpy(op), **kw).numpy()
+        want = np.asarray(pallas(jnp.asarray(tdt), jnp.asarray(tlt), jnp.asarray(op), **jx))
+        assert got.shape == want.shape and got.dtype == want.dtype == np.float32
+        scale = np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(got[:ref.shape[0], :ref.shape[1]], ref, rtol=0,
+                                   atol=1e-5 * scale)

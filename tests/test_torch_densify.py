@@ -116,6 +116,33 @@ def test_densify_slab_cases_match_pallas(out_dtype, case):
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.float64])
+def test_plain_scatter_equals_the_onehot_select_add(out_dtype):
+    """The plain version's per-slot scatter-add gives the bits of the TPU
+    kernel's one-hot select-add, signed zeros, NaN, infinities, duplicate
+    ids and ids outside the tile included."""
+
+    ntiles, wt, ct, R = 3, 8, 16, 64
+    vals, ids = payload(11, ntiles, wt, R, ct, dup=True, bad_ids=True, frac=True)
+    rng = np.random.default_rng(12)
+    special = np.array([-0.0, 0.0, np.nan, np.inf, -np.inf, -3.5], np.float32)
+    pick = rng.random(vals.shape) < 0.1
+    vals[pick] = rng.choice(special, int(pick.sum()))
+    tv, ti = torch.from_numpy(vals), torch.from_numpy(ids)
+    got = tiled_ell_densify_t_plain(tv, ti, wt=wt, ntiles=ntiles, col_tile=ct,
+                                    out_dtype=out_dtype)
+    td = tv.to(out_dtype).reshape(ntiles, wt, R)
+    tl = ti.reshape(ntiles, wt, R)
+    col = torch.arange(ct, dtype=torch.int32).view(1, -1, 1)
+    want = torch.zeros((ntiles, ct, R), dtype=out_dtype)
+    for w in range(wt):
+        want += torch.where(col == tl[:, w:w + 1], td[:, w:w + 1],
+                            torch.zeros((), dtype=out_dtype))
+    bits = torch.int32 if out_dtype == torch.float32 else torch.int64
+    assert torch.equal(got.view(bits), want.reshape(ntiles * ct, R).view(bits))
+    assert bool(torch.isnan(got).any()) and bool(torch.isinf(got).any())
+
+
 def test_int8_saturates_like_xla():
     # duplicate ids can sum past the int8 range: both saturate
     vals = np.array([[100.0, -100.0], [100.0, -100.0]], np.float32)
