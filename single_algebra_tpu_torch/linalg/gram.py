@@ -35,7 +35,8 @@ import torch
 
 from ..ops.densify import tiled_ell_densify_t
 from ..types import PowerIterationNormalizer
-from .operators import DenseOperator, hbm_bytes
+from ..utils.tracing import count, span
+from .operators import DenseOperator, _sync, hbm_bytes
 from .svd import randomized_svd, svd_flip
 
 __all__ = [
@@ -104,19 +105,20 @@ def _solve_topk(
     sketch of the randomized branch."""
 
     n_f = float(n)
-    if Gs.shape[0] <= EIGH_MAX_PP:
-        Gc = Gs - n_f * (mu[:, None] * mu[None, :]) if center else Gs
-        return topk_psd_eigh(Gc, k)
-    solve_op = _CenteredGram(Gs, mu, n_f) if center else DenseOperator(Gs)
-    os_eff = max(oversamples, min(k + 14, max(Gs.shape[0] - k, 0)))
-    it_eff = max(iters, 8)
-    res = randomized_svd(
-        solve_op, k, os_eff, it_eff, PowerIterationNormalizer.QR,
-        seed=seed, omega=omega,
-    )
-    _, vt = svd_flip(res.u, res.vt, u_based_decision=False)
-    s = torch.sqrt(torch.clamp(res.s, min=0.0))
-    return s, vt
+    with span("gram.solve", pp=Gs.shape[0]):
+        if Gs.shape[0] <= EIGH_MAX_PP:
+            Gc = Gs - n_f * (mu[:, None] * mu[None, :]) if center else Gs
+            return topk_psd_eigh(Gc, k)
+        solve_op = _CenteredGram(Gs, mu, n_f) if center else DenseOperator(Gs)
+        os_eff = max(oversamples, min(k + 14, max(Gs.shape[0] - k, 0)))
+        it_eff = max(iters, 8)
+        res = randomized_svd(
+            solve_op, k, os_eff, it_eff, PowerIterationNormalizer.QR,
+            seed=seed, omega=omega,
+        )
+        _, vt = svd_flip(res.u, res.vt, u_based_decision=False)
+        s = torch.sqrt(torch.clamp(res.s, min=0.0))
+        return s, vt
 
 
 def solve_gram_topk(G, mu, n, seed, *, k, center, omega=None):
@@ -347,13 +349,17 @@ class GramPCAEngine:
 
     @classmethod
     def from_matrix(cls, m) -> "GramPCAEngine":
-        """Host payload build, then upload to ``m.device``; the two times
-        are kept in ``build_seconds``."""
+        """Host payload build, then upload to ``m.device``, synchronised
+        there; the two times are kept in ``build_seconds``."""
 
         t0 = time.perf_counter()
-        arrays = cls.build_host(m)
+        with span("gram.build_host"):
+            arrays = cls.build_host(m)
         t1 = time.perf_counter()
-        eng = cls.from_arrays(*arrays, device=m.device)
+        with span("gram.upload"):
+            eng = cls.from_arrays(*arrays, device=m.device)
+            _sync(m.device)
+            count("gram.upload_bytes", eng.nbytes)
         eng.build_seconds = {
             "host_payload": t1 - t0, "upload": time.perf_counter() - t1,
         }
@@ -368,6 +374,13 @@ class GramPCAEngine:
     @property
     def n_padded(self) -> int:
         return sum(rc for _, rc in self.bwidths)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the engine's arrays on its device."""
+
+        return sum(t.numel() * t.element_size()
+                   for t in (*self.bdata, *self.blocal, self.pos, self.gidx))
 
     @property
     def p_padded(self) -> int:
@@ -400,16 +413,17 @@ class GramPCAEngine:
         """``A_perm @ B`` in bucketed row order -> [sum R_c, k] f32."""
 
         slab = _slab_for(self.shape[0])
-        out = torch.empty(
-            (self.n_padded, Bp.shape[1]), dtype=torch.float32, device=self.device
-        )
-        offset = 0
-        for b, (_, rc) in enumerate(self.bwidths):
-            for i in range(rc // slab):
-                r0 = offset + i * slab
-                out[r0:r0 + slab] = self._slab_dot(b, i, Bp, transposed=False)
-            offset += rc
-        return out
+        with span("gram.project", width=Bp.shape[1]):
+            out = torch.empty(
+                (self.n_padded, Bp.shape[1]), dtype=torch.float32, device=self.device
+            )
+            offset = 0
+            for b, (_, rc) in enumerate(self.bwidths):
+                for i in range(rc // slab):
+                    r0 = offset + i * slab
+                    out[r0:r0 + slab] = self._slab_dot(b, i, Bp, transposed=False)
+                offset += rc
+            return out
 
     def mv(self, B):
         """A @ B via slab densify passes ([p, k] -> [n, k])."""
@@ -494,10 +508,12 @@ def gram_matrix(
     def slabs(dtype):
         for b, (_, rc) in enumerate(eng.bwidths):
             for i in range(rc // slab):
+                count("gram.slabs")
                 yield eng._densify(b, i, dtype)
 
-    return gram_pass(slabs, eng.p_padded, eng.device, exact=exact,
-                     i8=exact and i8_vals and slab * 127 ** 2 < 2 ** 31, sym=sym, rb=rb)
+    i8 = exact and i8_vals and slab * 127 ** 2 < 2 ** 31
+    with span("gram.pass", tier="int8" if i8 else "bf16" if exact else "f32"):
+        return gram_pass(slabs, eng.p_padded, eng.device, exact=exact, i8=i8, sym=sym, rb=rb)
 
 
 def gram_pass(slabs, pp: int, dev, *, exact: bool, i8: bool, sym: bool = True,

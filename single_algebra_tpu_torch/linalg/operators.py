@@ -52,6 +52,7 @@ import torch
 
 from ..ops.spmm import ell_spmm
 from ..ops.spmm_kernel import tiled_ell_rmv_t, tiled_ell_spmm_t
+from ..utils.tracing import span
 
 __all__ = [
     "SparseOperator",
@@ -690,16 +691,17 @@ class TiledSparseOperator:
         split there; the two times are kept in ``build_seconds``."""
 
         t0 = time.perf_counter()
-        td, tl, ovd, ovi, otd, oti, shape, meta = cls.build_host(m)
+        with span("tiled.build_host"):
+            td, tl, ovd, ovi, otd, oti, shape, meta = cls.build_host(m)
         t1 = time.perf_counter()
 
         def put(a):
             return torch.from_numpy(a).to(m.device)
 
-        hi, lo = cls._split_payload(put(td), meta[0])
-        op = cls(hi, lo, put(tl), put(ovd), put(ovi), put(otd), put(oti), shape, meta)
-        if op.device.type == "cuda":
-            torch.cuda.synchronize(op.device)
+        with span("tiled.upload_split"):
+            hi, lo = cls._split_payload(put(td), meta[0])
+            op = cls(hi, lo, put(tl), put(ovd), put(ovi), put(otd), put(oti), shape, meta)
+            _sync(op.device)
         op.build_seconds = {
             "host_payload": t1 - t0, "upload_split": time.perf_counter() - t1,
         }
@@ -761,27 +763,29 @@ class TiledSparseOperator:
         _, nt, ct, _, ovw, _ = self.meta
         n, k = self.shape[0], B.shape[1]
         fast = fast and self._bf16
-        Bt = _padded_t(B, nt * ct, torch.bfloat16 if fast else B.dtype)
-        out = tiled_ell_spmm_t(self.tdata, self.tlocal, Bt, **self._kw())
-        if self.tdata_lo is not None and not fast:
-            out = out + tiled_ell_spmm_t(self.tdata_lo, self.tlocal, Bt, **self._kw())
-        result = out[:k, :n].T
-        if ovw > 0:
-            result = result + ell_spmm(self.ov_data, self.ov_ids, B)[:n]
-        return result.to(B.dtype)
+        with span("tiled.mv", width=k, fast=fast):
+            Bt = _padded_t(B, nt * ct, torch.bfloat16 if fast else B.dtype)
+            out = tiled_ell_spmm_t(self.tdata, self.tlocal, Bt, **self._kw())
+            if self.tdata_lo is not None and not fast:
+                out = out + tiled_ell_spmm_t(self.tdata_lo, self.tlocal, Bt, **self._kw())
+            result = out[:k, :n].T
+            if ovw > 0:
+                result = result + ell_spmm(self.ov_data, self.ov_ids, B)[:n]
+            return result.to(B.dtype)
 
     def _rmv(self, C, fast: bool):
         _, _, _, _, _, ovtw = self.meta
         p, k = self.shape[1], C.shape[1]
         fast = fast and self._bf16
-        Ct = _padded_t(C, self.tdata.shape[1], torch.bfloat16 if fast else C.dtype)
-        out = tiled_ell_rmv_t(self.tdata, self.tlocal, Ct, **self._kw())
-        if self.tdata_lo is not None and not fast:
-            out = out + tiled_ell_rmv_t(self.tdata_lo, self.tlocal, Ct, **self._kw())
-        result = out[:p, :k]
-        if ovtw > 0:
-            result = result + ell_spmm(self.ovt_data, self.ovt_ids, C)[:p]
-        return result.to(C.dtype)
+        with span("tiled.rmv", width=k, fast=fast):
+            Ct = _padded_t(C, self.tdata.shape[1], torch.bfloat16 if fast else C.dtype)
+            out = tiled_ell_rmv_t(self.tdata, self.tlocal, Ct, **self._kw())
+            if self.tdata_lo is not None and not fast:
+                out = out + tiled_ell_rmv_t(self.tdata_lo, self.tlocal, Ct, **self._kw())
+            result = out[:p, :k]
+            if ovtw > 0:
+                result = result + ell_spmm(self.ovt_data, self.ovt_ids, C)[:p]
+            return result.to(C.dtype)
 
     def mv(self, B):
         """A @ B at f32-class accuracy (hi, then lo, by the f32 operand)."""

@@ -25,6 +25,7 @@ from typing import NamedTuple
 import torch
 
 from ..types import PowerIterationNormalizer
+from ..utils.tracing import span
 
 __all__ = ["SvdResult", "randomized_svd", "svd_flip", "cholesky_qr2", "gaussian_sketch"]
 
@@ -87,28 +88,29 @@ def _cholesky_qr2_with_r(Y: torch.Tensor):
 
 def _orthonormalize(Y: torch.Tensor, normalizer: PowerIterationNormalizer):
     if normalizer == PowerIterationNormalizer.QR:
-        if Y.shape[0] >= _CHOLQR_MIN_ROWS and Y.dtype == torch.float32:
-            return cholesky_qr2(Y)
-        return torch.linalg.qr(Y)[0]
+        return _final_basis(Y)
     if normalizer == PowerIterationNormalizer.LU:
-        P, L, _ = torch.linalg.lu(Y)
-        return P @ L
+        with span("svd.orthonormalize", rows=Y.shape[0]):
+            P, L, _ = torch.linalg.lu(Y)
+            return P @ L
     return Y
 
 
 def _final_basis(Y: torch.Tensor) -> torch.Tensor:
-    if Y.shape[0] >= _CHOLQR_MIN_ROWS and Y.dtype == torch.float32:
-        return cholesky_qr2(Y)
-    return torch.linalg.qr(Y)[0]
+    with span("svd.orthonormalize", rows=Y.shape[0]):
+        if Y.shape[0] >= _CHOLQR_MIN_ROWS and Y.dtype == torch.float32:
+            return cholesky_qr2(Y)
+        return torch.linalg.qr(Y)[0]
 
 
 def gaussian_sketch(p: int, l: int, seed: int, *, dtype, device) -> torch.Tensor:
     """The default ``omega``: standard normal [p, l] from a generator on
     ``device`` seeded with ``seed``."""
 
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return torch.randn((p, l), generator=gen, dtype=dtype, device=device)
+    with span("svd.sketch"):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        return torch.randn((p, l), generator=gen, dtype=dtype, device=device)
 
 
 def randomized_svd(
@@ -126,37 +128,39 @@ def randomized_svd(
 
     n, p = op.shape
     l = min(n_components + n_oversamples, min(n, p))
-    if omega is None:
-        omega = gaussian_sketch(p, l, seed, dtype=op.dtype, device=op.device)
-    elif tuple(omega.shape) != (p, l):
-        raise ValueError(f"omega must be [{p}, {l}], got {tuple(omega.shape)}")
+    with span("svd.randomized", n=n, p=p, l=l):
+        if omega is None:
+            omega = gaussian_sketch(p, l, seed, dtype=op.dtype, device=op.device)
+        elif tuple(omega.shape) != (p, l):
+            raise ValueError(f"omega must be [{p}, {l}], got {tuple(omega.shape)}")
 
-    # power iterations ride the FAST products (subspace perturbation enters
-    # the spectrum only at second order); the final projection the precise
-    mv_fast = getattr(op, "mv_fast", op.mv)
-    rmv_fast = getattr(op, "rmv_fast", op.rmv)
-    Y = mv_fast(omega)  # [n, l]
-    for _ in range(n_power_iterations):
-        Y = _orthonormalize(Y, normalizer)
-        Z = _orthonormalize(rmv_fast(Y), normalizer)  # [p, l]
-        Y = mv_fast(Z)
+        # power iterations ride the FAST products (subspace perturbation enters
+        # the spectrum only at second order); the final projection the precise
+        mv_fast = getattr(op, "mv_fast", op.mv)
+        rmv_fast = getattr(op, "rmv_fast", op.rmv)
+        Y = mv_fast(omega)  # [n, l]
+        for _ in range(n_power_iterations):
+            Y = _orthonormalize(Y, normalizer)
+            Z = _orthonormalize(rmv_fast(Y), normalizer)  # [p, l]
+            Y = mv_fast(Z)
 
-    Q = _final_basis(Y)  # [n, l] orthonormal
-    Bt = getattr(op, "rmv_precise", op.rmv)(Q)  # [p, l] == (Q^T A)^T
+        Q = _final_basis(Y)  # [n, l] orthonormal
+        Bt = getattr(op, "rmv_precise", op.rmv)(Q)  # [p, l] == (Q^T A)^T
 
-    if p >= _CHOLQR_MIN_ROWS and Bt.dtype == torch.float32:
-        # Bt = Qb R with a Gram-based QR, then the SVD of the small [l, l]
-        # factor: B = R^T Qb^T, svd(R^T) = (ub, s, vr^T) =>
-        # svd(B) = (ub, s, vr^T Qb^T)
-        Qb, R = _cholesky_qr2_with_r(Bt)
-        ub, s, vtr = torch.linalg.svd(R.T, full_matrices=False)
-        vt = vtr @ Qb.T
-    else:
-        ub, s, vt = torch.linalg.svd(Bt.T, full_matrices=False)
-    U = Q @ ub
-    return SvdResult(
-        u=U[:, :n_components], s=s[:n_components], vt=vt[:n_components]
-    )
+        with span("svd.small_svd"):
+            if p >= _CHOLQR_MIN_ROWS and Bt.dtype == torch.float32:
+                # Bt = Qb R with a Gram-based QR, then the SVD of the small [l, l]
+                # factor: B = R^T Qb^T, svd(R^T) = (ub, s, vr^T) =>
+                # svd(B) = (ub, s, vr^T Qb^T)
+                Qb, R = _cholesky_qr2_with_r(Bt)
+                ub, s, vtr = torch.linalg.svd(R.T, full_matrices=False)
+                vt = vtr @ Qb.T
+            else:
+                ub, s, vt = torch.linalg.svd(Bt.T, full_matrices=False)
+            U = Q @ ub
+        return SvdResult(
+            u=U[:, :n_components], s=s[:n_components], vt=vt[:n_components]
+        )
 
 
 def svd_flip(u: torch.Tensor, vt: torch.Tensor, u_based_decision: bool = False):

@@ -43,6 +43,7 @@ from ..linalg.operators import (
 from ..linalg.svd import randomized_svd, svd_flip
 from ..sparse.matrix import SparseMatrix
 from ..types import SVDMethod, precision_policy
+from ..utils.tracing import span
 
 __all__ = ["SparsePCA", "SparsePCABuilder", "make_engine_operator"]
 
@@ -61,16 +62,17 @@ def _host_col_stats(m: SparseMatrix):
     CSR arrays; cached on the matrix."""
 
     cached = getattr(m, "_host_col_stats_cache", None)
-    if cached is not None:
-        return cached
-    src = m._layout_for("row")
-    data = src._csr_data_host().astype(np.float64)
-    idx = src._h_indices
-    p = m.ncols
-    s = np.bincount(idx, weights=data, minlength=p)[:p]
-    sq = np.bincount(idx, weights=data * data, minlength=p)[:p]
-    m._host_col_stats_cache = (s, sq)
-    return s, sq
+    with span("pca.host_col_stats", cached=cached is not None):
+        if cached is not None:
+            return cached
+        src = m._layout_for("row")
+        data = src._csr_data_host().astype(np.float64)
+        idx = src._h_indices
+        p = m.ncols
+        s = np.bincount(idx, weights=data, minlength=p)[:p]
+        sq = np.bincount(idx, weights=data * data, minlength=p)[:p]
+        m._host_col_stats_cache = (s, sq)
+        return s, sq
 
 
 def _needs_lo(m: SparseMatrix) -> bool:
@@ -90,42 +92,48 @@ def make_engine_operator(m: SparseMatrix, engine: str = "auto"):
     device 'auto' is 'sparse', as off the TPU in the JAX package.
     """
 
-    cache = m._operator_cache
-    requested = engine
-    if requested in cache:
-        return cache[requested]
-    if engine == "auto":
-        if m.device.type == "cuda" and m.dtype == torch.float32:
-            if DensifiedOperator.fits(
-                m.shape, needs_lo=False, device=m.device
-            ) and DensifiedOperator.fits(
-                m.shape, needs_lo=_needs_lo(m), device=m.device
-            ):
-                engine = "dense"
-            elif GramPCAEngine.fits(m):
-                engine = "gram"
-            elif TiledSparseOperator.fits(m):
-                engine = "tiled"
-            else:
-                engine = "sparse"
-        else:
-            engine = "sparse"
-    if engine in cache:
-        cache[requested] = cache[engine]
-        return cache[engine]
+    with span("pca.engine", requested=engine) as current:
+        cache = m._operator_cache
+        if engine in cache:
+            current.set(cached=True)
+            return cache[engine]
+        chosen = _choose_engine(m) if engine == "auto" else engine
+        current.set(engine=chosen, cached=chosen in cache)
+        if chosen not in cache:
+            cache[chosen] = _build_engine(m, chosen)
+        cache[engine] = cache[chosen]
+        return cache[chosen]
+
+
+def _choose_engine(m: SparseMatrix) -> str:
+    """The engine 'auto' takes for ``m`` (see :func:`make_engine_operator`)."""
+
+    if m.device.type != "cuda" or m.dtype != torch.float32:
+        return "sparse"
+    with span("pca.engine_gates"):
+        if DensifiedOperator.fits(
+            m.shape, needs_lo=False, device=m.device
+        ) and DensifiedOperator.fits(
+            m.shape, needs_lo=_needs_lo(m), device=m.device
+        ):
+            return "dense"
+        if GramPCAEngine.fits(m):
+            return "gram"
+        if TiledSparseOperator.fits(m):
+            return "tiled"
+        return "sparse"
+
+
+def _build_engine(m: SparseMatrix, engine: str):
     if engine == "dense":
-        op = DensifiedOperator.from_matrix(m)
-    elif engine == "gram":
-        op = GramPCAEngine.from_matrix(m)
-    elif engine == "tiled":
-        op = TiledSparseOperator.from_matrix(m)
-    elif engine == "sparse":
-        op = SparseOperator.from_matrix(m)
-    else:
-        raise ValueError(f"unknown engine {engine!r}")
-    cache[engine] = op
-    cache[requested] = op
-    return op
+        return DensifiedOperator.from_matrix(m)
+    if engine == "gram":
+        return GramPCAEngine.from_matrix(m)
+    if engine == "tiled":
+        return TiledSparseOperator.from_matrix(m)
+    if engine == "sparse":
+        return SparseOperator.from_matrix(m)
+    raise ValueError(f"unknown engine {engine!r}")
 
 
 def _fit_graph(op, mean, seed, *, k: int, method: SVDMethod, center: bool,
@@ -331,13 +339,17 @@ class SparsePCA(_LazyPCAState):
 
     @precision_policy()
     def fit(self, x) -> "SparsePCA":
+        with span("pca.fit", model=type(self).__name__):
+            return self._fit(x)
+
+    def _fit(self, x) -> "SparsePCA":
         m = _as_matrix(x)
         n_samples, n_features = m.shape
         k = self.n_components
         t0 = time.perf_counter()
 
         op = make_engine_operator(m, self.engine)
-        t_op = time.perf_counter() - t0
+        t1 = time.perf_counter()
 
         col_sums, col_sq = _host_col_stats(m)
         dt = np.float32 if m.dtype == torch.float32 else np.float64
@@ -354,7 +366,7 @@ class SparsePCA(_LazyPCAState):
             total_var = float(
                 np.sum((col_sq - mean64 * col_sums) / (n_samples - 1))
             )
-        t_stats = time.perf_counter() - t0 - t_op
+        t_stats = time.perf_counter() - t1
 
         sm = self.svd_method
         want_t = getattr(self, "_want_transform", False)
@@ -391,8 +403,9 @@ class SparsePCA(_LazyPCAState):
             )
             self.lanczos_steps_taken_ = info.get("steps")
         self._fitted_transform = T
-        t_svd = time.perf_counter() - t0 - t_op - t_stats
-        self._fit_timings = dict(operator=t_op, stats=t_stats, svd=t_svd)
+        # host seconds of the column statistics; the engine build and the
+        # solve are the spans "pca.engine" and "gram.solve" / "svd.randomized"
+        self._fit_timings = dict(stats=t_stats)
         self.components_ = vt
         self._set_fit_state(s_dev, total_var, n_samples, min(n_samples, n_features))
 

@@ -45,6 +45,7 @@ import torch
 from ..ops import stats as _st
 from ..ops.spmm import ell_onehot_spmm, ell_spmm
 from ..types import Direction, canonical_float_dtype, precision_policy, torch_dtype
+from ..utils.tracing import span
 from . import convert as _cv
 
 __all__ = ["SparseMatrix", "csr_matrix", "csc_matrix", "random_sparse"]
@@ -122,24 +123,25 @@ class SparseMatrix:
 
         import scipy.sparse as sp
 
-        if fmt is None:
-            fmt = "csc" if sp.issparse(mat) and mat.format == "csc" else "csr"
-        if dtype is not None:
-            dt = canonical_float_dtype(dtype)
-        elif np.issubdtype(mat.dtype, np.floating):
-            dt = canonical_float_dtype(mat.dtype)
-        else:
-            dt = np.dtype(np.float32)
-        major = mat.tocsr() if fmt == "csr" else mat.tocsc()
-        major.sort_indices()
-        return cls(
-            major.indptr.astype(np.int64),
-            major.indices.astype(np.int32),
-            major.data.astype(dt),
-            major.shape,
-            fmt,
-            device,
-        )
+        with span("sparse.from_scipy"):
+            if fmt is None:
+                fmt = "csc" if sp.issparse(mat) and mat.format == "csc" else "csr"
+            if dtype is not None:
+                dt = canonical_float_dtype(dtype)
+            elif np.issubdtype(mat.dtype, np.floating):
+                dt = canonical_float_dtype(mat.dtype)
+            else:
+                dt = np.dtype(np.float32)
+            major = mat.tocsr() if fmt == "csr" else mat.tocsc()
+            major.sort_indices()
+            return cls(
+                major.indptr.astype(np.int64),
+                major.indices.astype(np.int32),
+                major.data.astype(dt),
+                major.shape,
+                fmt,
+                device,
+            )
 
     @classmethod
     def from_dense(cls, arr, fmt: str = "csr", dtype=None, device="cuda") -> "SparseMatrix":
