@@ -1514,10 +1514,15 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
     emits a ``kernel_spmm`` and a ``kernel_rmv`` line, fails above
     KERNEL_REL_FAIL or where a repeated launch differs, and folds the
     worst abs error into ``result``. The plain version's time is that of
-    the comparison call itself (CUDA events; it runs once)."""
+    the comparison call itself (CUDA events; it runs once). A ``kernel_rmv``
+    line also holds the kernel-built form to the plain builder's
+    (``form_equal_plain``), times the call over a kept form (``form_ms``,
+    bit for bit the bare call's result) and the form's build
+    (``form_build_ms``)."""
 
     from single_algebra_tpu_torch.ops.spmm_kernel import (
-        tiled_ell_rmv_t, tiled_ell_rmv_t_plain, tiled_ell_spmm_t, tiled_ell_spmm_t_plain,
+        tiled_ell_rmv_form, tiled_ell_rmv_t, tiled_ell_rmv_t_plain, tiled_ell_spmm_t,
+        tiled_ell_spmm_t_plain,
     )
 
     R = vals.shape[1]
@@ -1540,21 +1545,59 @@ def _compare_tiled(torch, result, gen, case, vals, ids, *, wt, ntiles, ct, kp, o
         del want
         repeat_equal = bool(torch.equal(fn(vals, ids, op, **kw), got))
         pad_zero = bool(not got[:, :pad].any()) if pad and phase == "kernel_spmm" else None
-        del got
         ms = _time_ms(torch, lambda: fn(vals, ids, op, **kw), 10)
+        extra = {}
+        if phase == "kernel_rmv":  # a kept form, as the engine's operator holds it
+            form = tiled_ell_rmv_form(vals, ids, **kw)
+            repeat_equal &= bool(torch.equal(fn(vals, ids, op, form=form, **kw), got))
+            extra = dict(
+                form_equal_plain=_form_equal_plain(torch, vals, ids, form, **kw),
+                form_build_ms=_time_ms(torch, lambda: tiled_ell_rmv_form(vals, ids, **kw), 3),
+                form_ms=_time_ms(torch, lambda: fn(vals, ids, op, form=form, **kw), 10))
+            del form
+        del got
         emit(phase, case=case, wt=wt, payload=str(vals.dtype).split(".")[-1],
              operand=str(odt).split(".")[-1], R=R, ntiles=ntiles, col_tile=ct, kp=kp,
              rel_err=rel, max_abs_err=abs_err, repeat_equal=repeat_equal,
-             pad_block_zero=pad_zero, ms=ms, plain_ms=plain_ms)
-        if not rel <= KERNEL_REL_FAIL or pad_zero is False or not repeat_equal:
+             pad_block_zero=pad_zero, ms=ms, plain_ms=plain_ms, **extra)
+        form_equal = extra.get("form_equal_plain", True)
+        if not rel <= KERNEL_REL_FAIL or pad_zero is False or not repeat_equal or not form_equal:
             raise AssertionError(f"{phase} {case}: kernel vs plain rel err {rel}, "
-                                 f"repeat_equal={repeat_equal}, pad_block_zero={pad_zero}")
+                                 f"repeat_equal={repeat_equal}, pad_block_zero={pad_zero}, "
+                                 f"form_equal_plain={form_equal}")
         name = "tiled_ell_spmm_t" if phase == "kernel_spmm" else "tiled_ell_rmv_t"
         entry = result.setdefault(name, dict(max_abs_err=0.0))
         entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
-        entry.setdefault("cases", {})[case] = dict(ms=ms, plain_ms=plain_ms)
+        entry.setdefault("cases", {})[case] = dict(ms=ms, plain_ms=plain_ms, **extra)
         del op
         torch.cuda.empty_cache()
+
+
+def _form_equal_plain(torch, vals, ids, form, *, wt, ntiles, col_tile) -> bool:
+    """The kernel-built rmv form against ``tiled_ell_rmv_form_plain``, bit
+    for bit in every field (entries and their zero padding, offsets,
+    starts, schedule), a group of column tiles at a time: the plain
+    builder's sort holds several int64 copies of the stored slots."""
+
+    from single_algebra_tpu_torch.ops.spmm_kernel import tiled_ell_rmv_form_plain
+
+    R = vals.shape[1]
+    nrc, words = -(-R // 256), 1 if vals.dtype == torch.bfloat16 else 2
+    n = int(form.starts[-1])
+    equal = form.entries.numel() == n * words + 4 and not bool(form.entries[n * words:].any())
+    step = max(1, (1 << 27) // (wt * R))
+    for t0 in range(0, ntiles, step):
+        t1 = min(t0 + step, ntiles)
+        want = tiled_ell_rmv_form_plain(vals[t0 * wt:t1 * wt], ids[t0 * wt:t1 * wt], wt=wt,
+                                        ntiles=t1 - t0, col_tile=col_tile)
+        i0, i1 = t0 * nrc, t1 * nrc
+        s0, s1 = int(form.starts[i0]), int(form.starts[i1])
+        equal = equal and (torch.equal(form.starts[i0:i1 + 1] - s0, want.starts)
+                           and torch.equal(form.entries[s0 * words:s1 * words], want.entries[:-4])
+                           and torch.equal(form.offsets[i0:i1], want.offsets)
+                           and torch.equal(form.schedule[i0:i1], want.schedule))
+        del want
+    return bool(equal)
 
 
 def phase_kernel_tiled(torch, result: dict) -> None:
@@ -1684,7 +1727,7 @@ def phase_tiled_path(torch, kernel_result: dict, data=None) -> dict:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     launches = {name: cuda_lib.launch_counts[name]
-                for name in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")}
+                for name in ("tiled_ell_spmm_t", "tiled_ell_rmv_t", "tiled_ell_rmv_form")}
     peak = torch.cuda.max_memory_allocated()
     op = m._operator_cache.get("auto")
     ev = np.asarray(pca.explained_variance_, np.float64)
@@ -1698,6 +1741,10 @@ def phase_tiled_path(torch, kernel_result: dict, data=None) -> dict:
         raise AssertionError(f"engine 'auto' built {type(op).__name__}, not TiledSparseOperator")
     if min(launches.values()) <= 0:
         raise AssertionError(f"the tiled path did not launch both kernels: {launches}")
+    forms_warm = cuda_lib.launch_counts["tiled_ell_rmv_form"] - launches["tiled_ell_rmv_form"]
+    if launches["tiled_ell_rmv_form"] != len(op._forms) or forms_warm:
+        raise AssertionError(f"rmv forms: {launches['tiled_ell_rmv_form']} built in the cold "
+                             f"fit for {sorted(op._forms)}, {forms_warm} in the warm fit")
     if tuple(T.shape) != (n, k) or not bool(torch.isfinite(T).all()):
         raise AssertionError(f"scores: shape {tuple(T.shape)}, finite={bool(torch.isfinite(T).all())}")
     if not np.all(np.isfinite(ev)) or tuple(T2.shape) != (n, k):
@@ -1731,7 +1778,8 @@ def phase_tiled_path(torch, kernel_result: dict, data=None) -> dict:
         warm_vs_cold_rel=warm_vs_cold, fit_timings_cold=pca._fit_timings,
         engine_build_s=op.build_seconds, split_widths_s=widths_s,
         overflow_col_width_s=overflow_col_width_s, peak_alloc_gb=peak / 1e9,
-        launches=launches, T_shape=list(T.shape),
+        launches=launches, forms_kept=sorted(op._forms),
+        form_gb=sum(f.nbytes for f in op._forms.values()) / 1e9, T_shape=list(T.shape),
     )
     del T
 
@@ -4013,7 +4061,8 @@ def phase_lsi(torch, X, kernel_result: dict) -> dict:
         pca_mod.make_engine_operator, svd_mod.gaussian_sketch = real_engine, real_sketch
         for name, fn in originals.items():
             setattr(ops, name, fn)
-    launches = {k: cuda_lib.launch_counts[k] for k in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")}
+    launches = {k: cuda_lib.launch_counts[k]
+                for k in ("tiled_ell_spmm_t", "tiled_ell_rmv_t", "tiled_ell_rmv_form")}
     peak = torch.cuda.max_memory_allocated()
     op = engines[0]
     if not isinstance(op, TiledSparseOperator) or op.tdata_lo is None:
@@ -4021,6 +4070,9 @@ def phase_lsi(torch, X, kernel_result: dict) -> dict:
                              f"(lo payload: {getattr(op, 'tdata_lo', None) is not None})")
     if min(launches.values()) <= 0:
         raise AssertionError(f"lsi did not launch both tiled kernels: {launches}")
+    if launches["tiled_ell_rmv_form"] != len(op._forms):
+        raise AssertionError(f"lsi built {launches['tiled_ell_rmv_form']} rmv forms for "
+                             f"{sorted(op._forms)}: one per payload array was expected")
     if res.scores.shape != (X.shape[0], LSI_COMPONENTS) or not np.isfinite(res.scores).all():
         raise AssertionError(f"lsi scores {res.scores.shape}, finite={np.isfinite(res.scores).all()}")
     # every launched shape against the plain versions, on both halves
@@ -4037,7 +4089,7 @@ def phase_lsi(torch, X, kernel_result: dict) -> dict:
                            spmm="tiled_ell_spmm_t" in names, rmv="tiled_ell_rmv_t" in names)
     emit("lsi", n=X.shape[0], p=X.shape[1], nnz=int(X.nnz), components=LSI_COMPONENTS,
          engine=type(op).__name__, wt=wt, ntiles=ntiles, lo_present=True,
-         fit_s=fit_s, launches=launches, shapes_launched=[
+         fit_s=fit_s, launches=launches, forms_kept=sorted(op._forms), shapes_launched=[
              [name, kp, str(odt)] for name, kp, odt in sorted(seen, key=str)],
          peak_alloc_gb=peak / 1e9, engine_build_s=op.build_seconds, card=card())
     del op, engines, mb
@@ -4445,7 +4497,7 @@ def phase_mesh_tiled(torch, m, ev_single, lanczos_single: dict, kernel_result: d
             runs[run_name] = dict(
                 seconds=seconds, ev=res.explained_variance.double().cpu().numpy(),
                 launches={k: cuda_lib.launch_counts[k]
-                          for k in ("tiled_ell_spmm_t", "tiled_ell_rmv_t")},
+                          for k in ("tiled_ell_spmm_t", "tiled_ell_rmv_t", "tiled_ell_rmv_form")},
                 ok=tuple(res.transformed.shape) == (n, K)
                 and bool(torch.isfinite(res.transformed).all()))
             del res
@@ -4461,9 +4513,14 @@ def phase_mesh_tiled(torch, m, ev_single, lanczos_single: dict, kernel_result: d
     ndev = mesh.size
     rand, block = runs["randomized"], runs["lanczos_block_8"]
     block_steps = block["launches"]["tiled_ell_rmv_t"] // ndev
-    predicted = dict(randomized={"tiled_ell_spmm_t": ndev * 9, "tiled_ell_rmv_t": ndev * 8},
+    # each slab builds its rmv form in the first fit and keeps it
+    predicted = dict(randomized={"tiled_ell_spmm_t": ndev * 9, "tiled_ell_rmv_t": ndev * 8,
+                                 "tiled_ell_rmv_form": ndev},
+                     randomized_warm={"tiled_ell_spmm_t": ndev * 9, "tiled_ell_rmv_t": ndev * 8,
+                                      "tiled_ell_rmv_form": 0},
                      lanczos_block_8={"tiled_ell_spmm_t": ndev * (block_steps + 1),
-                                      "tiled_ell_rmv_t": ndev * block_steps})
+                                      "tiled_ell_rmv_t": ndev * block_steps,
+                                      "tiled_ell_rmv_form": 0})
     errs = dict(randomized=_ev_rel_err(rand["ev"], ev_single),
                 randomized_warm=_ev_rel_err(runs["randomized_warm"]["ev"], ev_single),
                 lanczos_block_8=_ev_rel_err(block["ev"], lanczos_single["lanczos_block_8"]["ev"]))

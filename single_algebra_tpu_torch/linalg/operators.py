@@ -51,7 +51,9 @@ import numpy as np
 import torch
 
 from ..ops.spmm import ell_spmm
-from ..ops.spmm_kernel import tiled_ell_rmv_t, tiled_ell_spmm_t
+from ..ops.spmm_kernel import (
+    rmv_form_nbytes, tiled_ell_rmv_form, tiled_ell_rmv_t, tiled_ell_spmm_t,
+)
 from ..utils.tracing import span
 
 __all__ = [
@@ -610,6 +612,13 @@ class TiledSparseOperator:
     float32 (see the module docs). float64 matrices keep a float64 payload
     with exact products on the CPU; the CUDA kernels refuse float64.
 
+    On a card the operator keeps, per payload array (``hi``, and ``lo``
+    where there is one), the bucketed form that ``tiled_ell_rmv_t`` sums
+    (:class:`~..ops.spmm_kernel.RmvForm`), built at the first ``rmv*``
+    that needs it, so later ``rmv*`` calls skip the bucketing; the
+    ``tiled.rmv`` span's ``form`` attribute says ``built``, ``reused`` or
+    ``none`` (the CPU's plain route needs no form).
+
     ``meta = (wt, ntiles, ct, br, ovw, ovtw)``.
     """
 
@@ -622,6 +631,8 @@ class TiledSparseOperator:
     ovt_ids: torch.Tensor
     shape: Tuple[int, int]
     meta: Tuple[int, int, int, int, int, int]
+    _forms: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)  # "hi" / "lo" -> RmvForm
 
     COL_TILE = 256
     BLOCK_ROWS = 1024
@@ -712,8 +723,9 @@ class TiledSparseOperator:
     @classmethod
     def payload_bytes(cls, m) -> int:
         """Device-payload size of the tiled layout for ``m``, charged as the
-        JAX package charges it (f32 values + int32 ids; two O(nnz) host
-        passes over the structure)."""
+        JAX package charges it (f32 values + int32 ids, 8 bytes a slot; two
+        O(nnz) host passes over the structure), so both packages price the
+        payload alike. :meth:`fits` adds :meth:`form_bytes`."""
 
         from ..sparse import convert as cv
 
@@ -723,7 +735,7 @@ class TiledSparseOperator:
         wt, ntiles, ovw, _ = cv.tiled_split_widths(
             src._h_indptr, src._h_indices, n, p, col_tile=cls.COL_TILE
         )
-        rp = max(-(-n // cls.BLOCK_ROWS), 1) * cls.BLOCK_ROWS
+        rp = cls._rows(n)
         main = ntiles * wt * rp * 8
         over = rp * ovw * 8
         if ovw:
@@ -736,10 +748,35 @@ class TiledSparseOperator:
         return main + over
 
     @classmethod
+    def form_bytes(cls, m) -> int:
+        """Device bytes of the rmv forms the operator keeps for ``m`` past
+        :meth:`payload_bytes` (:func:`form_charge`; one O(nnz) host pass);
+        0 off CUDA, where no form is kept."""
+
+        from ..sparse import convert as cv
+
+        if m.device.type != "cuda":
+            return 0
+        src = m._layout_for("row")
+        src._require_host_structure()
+        n, p = m.shape
+        wt, ntiles, _, _ = cv.tiled_split_widths(
+            src._h_indptr, src._h_indices, n, p, col_tile=cls.COL_TILE
+        )
+        return form_charge(m, wt, ntiles, cls._rows(n))
+
+    @classmethod
+    def _rows(cls, n: int) -> int:
+        return max(-(-n // cls.BLOCK_ROWS), 1) * cls.BLOCK_ROWS
+
+    @classmethod
     def fits(cls, m, budget_bytes: int | None = None) -> bool:
+        """The payload and, on a card, the rmv forms the operator will keep
+        fit ``budget_bytes`` (0.6 of the card's memory by default)."""
+
         if budget_bytes is None:
             budget_bytes = DensifiedOperator.hbm_budget_bytes(m.device)
-        return cls.payload_bytes(m) <= budget_bytes
+        return cls.payload_bytes(m) + cls.form_bytes(m) <= budget_bytes
 
     # -- products --------------------------------------------------------
 
@@ -773,15 +810,36 @@ class TiledSparseOperator:
                 result = result + ell_spmm(self.ov_data, self.ov_ids, B)[:n]
             return result.to(B.dtype)
 
+    def _rmv_form(self, half: str, td: torch.Tensor):
+        """The kept bucketed form of payload array ``half`` ("hi" or "lo",
+        ``td``), built now if missing; None off CUDA. -> (form, built now)."""
+
+        if self.device.type != "cuda":
+            return None, False
+        form = self._forms.get(half)
+        if form is not None:
+            return form, False
+        wt, nt, ct = self.meta[:3]
+        form = self._forms[half] = tiled_ell_rmv_form(td, self.tlocal, wt=wt, ntiles=nt,
+                                                       col_tile=ct)
+        return form, True
+
     def _rmv(self, C, fast: bool):
         _, _, _, _, _, ovtw = self.meta
         p, k = self.shape[1], C.shape[1]
         fast = fast and self._bf16
-        with span("tiled.rmv", width=k, fast=fast):
+        with span("tiled.rmv", width=k, fast=fast) as sp:
             Ct = _padded_t(C, self.tdata.shape[1], torch.bfloat16 if fast else C.dtype)
-            out = tiled_ell_rmv_t(self.tdata, self.tlocal, Ct, **self._kw())
+            halves = [("hi", self.tdata)]
             if self.tdata_lo is not None and not fast:
-                out = out + tiled_ell_rmv_t(self.tdata_lo, self.tlocal, Ct, **self._kw())
+                halves.append(("lo", self.tdata_lo))
+            out, built = None, False
+            for half, td in halves:
+                form, new = self._rmv_form(half, td)
+                built |= new
+                part = tiled_ell_rmv_t(td, self.tlocal, Ct, form=form, **self._kw())
+                out = part if out is None else out + part
+            sp.set(form="built" if built else "none" if form is None else "reused")
             result = out[:p, :k]
             if ovtw > 0:
                 result = result + ell_spmm(self.ovt_data, self.ovt_ids, C)[:p]
@@ -806,6 +864,26 @@ class TiledSparseOperator:
         """A^T @ C with the hi payload by the bf16-rounded operand."""
 
         return self._rmv(C, fast=True)
+
+
+def form_charge(m, wt: int, ntiles: int, rows: int) -> int:
+    """Bytes that the rmv forms (:class:`~..ops.spmm_kernel.RmvForm`) of
+    the tiled payload of ``m`` at ``rows`` payload rows (all slabs
+    together) take beyond the 8 bytes a slot that ``payload_bytes``
+    charges. ``m.nnz`` bounds the entries a form stores. A float32 payload
+    (``wt > BF16_WT_MAX``) takes its 8 bytes a slot and keeps one form of
+    8-byte entries; a payload with a ``lo`` half takes 8 bytes a slot and
+    keeps two forms of 4-byte entries; a bf16-exact payload takes 6 bytes
+    a slot and its one form of 4-byte entries is charged past the 2 bytes
+    a slot left over. At the tiled path's 500,736 x 237 tiles x 16 slots
+    (15.7 % stored) that is 0 for counts, 2 x 1.79 GB with a ``lo``
+    half."""
+
+    ct, slots = TiledSparseOperator.COL_TILE, ntiles * wt * rows
+    if wt > TiledSparseOperator.BF16_WT_MAX:
+        return rmv_form_nbytes(m.nnz, rows, ntiles, ct, torch.float32)
+    one = rmv_form_nbytes(m.nnz, rows, ntiles, ct, torch.bfloat16)
+    return max(0, one - 2 * slots) if m.values_bf16_exact() else 2 * one
 
 
 def _coo_to_csr_arrays(rows, cols, vals, n, p):

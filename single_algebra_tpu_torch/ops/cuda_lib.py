@@ -48,7 +48,8 @@ SOURCES = {
 }
 
 #: Kernel launches per wrapper since the last :func:`reset_launch_counts`.
-launch_counts = {"tiled_ell_densify_t": 0, "tiled_ell_spmm_t": 0, "tiled_ell_rmv_t": 0}
+launch_counts = {"tiled_ell_densify_t": 0, "tiled_ell_spmm_t": 0, "tiled_ell_rmv_t": 0,
+                 "tiled_ell_rmv_form": 0}
 
 #: The densify kernel's launches in :data:`launch_counts`, split by the
 #: output dtype's name ("int8", "bfloat16", "float32"): the Gram tier a

@@ -46,8 +46,8 @@ def _on_cuda(mesh: Mesh) -> bool:
 def choose_sharded_engine(m: SparseMatrix, mesh: Mesh) -> str:
     """Mesh analog of the single-card 'auto' ladder: 'dense' when the bf16
     densified payload fits the mesh's budget, else 'tiled' when the
-    sharded tiled payload fits, else 'sparse' (the gather engine). The
-    budget is the sum of the DISTINCT devices' budgets
+    sharded tiled payload and its slabs' rmv forms fit, else 'sparse' (the
+    gather engine). The budget is the sum of the DISTINCT devices' budgets
     (:func:`~.sharded.mesh_budget_bytes`). 'dense' and 'tiled' are
     float32 engines on CUDA meshes only, as in the single-card ladder.
     The Gram engine has its own entry point (``sharded_gram_pca``)."""
@@ -59,7 +59,8 @@ def choose_sharded_engine(m: SparseMatrix, mesh: Mesh) -> str:
     if DensifiedOperator.fits(m.shape, budget_bytes=budget, needs_lo=_needs_lo(m),
                               device=mesh.home):
         return "dense"
-    if ShardedTiled.payload_bytes(m, mesh.size) <= budget:
+    ndev = mesh.size
+    if ShardedTiled.payload_bytes(m, ndev) + ShardedTiled.form_bytes(m, ndev) <= budget:
         return "tiled"
     return "sparse"
 

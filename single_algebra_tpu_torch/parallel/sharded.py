@@ -46,6 +46,7 @@ from ..linalg.operators import (
     DensifiedOperator,
     SparseOperator,
     TiledSparseOperator,
+    form_charge,
     _coo_to_csr_arrays,
     _scatter_bf16,
 )
@@ -455,6 +456,19 @@ class ShardedTiled(_RowSharded):
             ovtw = _cv.tiled_overflow_col_width(src._h_indptr, src._h_indices, n, p, ct, wt)
             over += ndev * _cv.pad_rows(p) * _cv.round_up(max(ovtw, 1), 8) * 8
         return main + over
+
+    @classmethod
+    def form_bytes(cls, m, ndev: int) -> int:
+        """Device bytes of the slabs' rmv forms past :meth:`payload_bytes`
+        on a CUDA mesh (``form_charge`` over every slab's rows)."""
+
+        src = m._layout_for("row")
+        src._require_host_structure()
+        n, p = m.shape
+        ct = TiledSparseOperator.COL_TILE
+        wt, nt, _, _ = _cv.tiled_split_widths(src._h_indptr, src._h_indices, n, p, col_tile=ct)
+        rsp, _ = cls._padded_rows(-(-n // ndev))
+        return form_charge(m, wt, nt, ndev * rsp)
 
 
 @dataclasses.dataclass

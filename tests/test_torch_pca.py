@@ -224,8 +224,8 @@ def test_port_accepts_every_jax_engine_name(counts, engine):
 def test_auto_decision_order_on_cuda(monkeypatch, counts, dense_budget, gram_budget, want):
     """'auto' on a CUDA device: dense when the bf16 form fits its budget,
     else gram when its plan fits, else tiled when its payload (patched to
-    5,000 bytes) fits the dense budget, else sparse (budgets patched, so
-    the order is checked without a card)."""
+    5,000 bytes, its rmv forms to none) fits the dense budget, else sparse
+    (budgets patched, so the order is checked without a card)."""
 
     m = SparseMatrix.from_scipy(counts, device="cuda")
     monkeypatch.setattr(tpca.DensifiedOperator, "hbm_budget_bytes",
@@ -234,6 +234,7 @@ def test_auto_decision_order_on_cuda(monkeypatch, counts, dense_budget, gram_bud
                         staticmethod(lambda device: int(gram_budget)))
     monkeypatch.setattr(tpca.TiledSparseOperator, "payload_bytes",
                         classmethod(lambda cls, mm: 5000))
+    monkeypatch.setattr(tpca.TiledSparseOperator, "form_bytes", classmethod(lambda cls, mm: 0))
     built = []
     for cls, name in ((tpca.DensifiedOperator, "dense"), (tgram.GramPCAEngine, "gram"),
                       (tpca.TiledSparseOperator, "tiled"), (tpca.SparseOperator, "sparse")):

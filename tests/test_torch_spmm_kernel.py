@@ -21,6 +21,8 @@ import torch
 from single_algebra_tpu_torch.ops import cuda_lib
 from single_algebra_tpu_torch.ops import spmm as tspmm
 from single_algebra_tpu_torch.ops.spmm_kernel import (
+    tiled_ell_rmv_form,
+    tiled_ell_rmv_form_plain,
     tiled_ell_rmv_t,
     tiled_ell_rmv_t_plain,
     tiled_ell_spmm_t,
@@ -152,8 +154,10 @@ def test_cpu_route_counts_no_launch():
                      block_rows=128)
     tiled_ell_rmv_t(vals, ids, operand(12, 8, 256, "f32"), wt=8, ntiles=2, col_tile=64,
                     block_rows=128)
+    tiled_ell_rmv_form(vals, ids, wt=8, ntiles=2, col_tile=64)
     assert cuda_lib.launch_counts == {
         "tiled_ell_densify_t": 0, "tiled_ell_spmm_t": 0, "tiled_ell_rmv_t": 0,
+        "tiled_ell_rmv_form": 0,
     }
 
 
@@ -279,6 +283,249 @@ def test_ell_spmm_matches_jax(monkeypatch, blocked):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
+# -- the bucketed form of rmv --------------------------------------------------
+
+
+def form_payload(seed, ntiles, wt, R, ct, dtype):
+    """``payload`` plus the cases a form drops or keeps: stored-looking
+    slots with ``v == 0`` and negative ids (dropped), duplicate ids (kept)."""
+
+    vals, ids = payload(seed, ntiles, wt, R, ct, dtype=dtype, frac=dtype != "bf16")
+    rng = np.random.default_rng(seed + 1)
+    zero = torch.from_numpy(rng.random(vals.shape) < 0.03)
+    vals[zero] = 0
+    ids[zero] = torch.from_numpy(rng.integers(1, ct, vals.shape).astype(np.int32))[zero]
+    ids[torch.from_numpy(rng.random(vals.shape) < 0.02)] = -1
+    return vals, ids
+
+
+def value_bits(vals):
+    """Each value's bits as the form packs them: bf16 bits, f32 bits."""
+
+    if vals.dtype == torch.bfloat16:
+        return vals.view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    return vals.view(torch.int32).numpy().astype(np.int64) & 0xFFFFFFFF
+
+
+def form_by_loops(vals, ids, *, wt, ntiles, ct):
+    """Item by item, the stored slots of each column in (slot // 16, row //
+    32, slot % 16, row % 32) order, as (value bits, row in the item)."""
+
+    R = vals.shape[1]
+    nrc = -(-R // 256)
+    bits, v, lid = value_bits(vals), vals.float().numpy(), ids.numpy()
+    items = []
+    for t in range(ntiles):
+        for rc in range(nrc):
+            cols = [[] for _ in range(ct)]
+            for j0 in range(0, wt, 16):
+                for warp in range(8):
+                    for u in range(j0, min(j0 + 16, wt)):
+                        for lane in range(32):
+                            r = rc * 256 + warp * 32 + lane
+                            x, c = (v[t * wt + u, r], lid[t * wt + u, r]) if r < R else (0, -1)
+                            if x != 0 and 0 <= c < ct:
+                                cols[c].append((int(bits[t * wt + u, r]), warp * 32 + lane))
+            items.append(cols)
+    return items
+
+
+def decode_form(form):
+    """The form's entries as (value bits, row) per item and column."""
+
+    ct, n = form.col_tile, int(form.starts[-1])
+    if form.dtype == torch.bfloat16:
+        w = form.entries[:n].numpy().astype(np.int64) & 0xFFFFFFFF
+        bits, rows = w >> 16, w & 0xFFFF
+    else:
+        w = form.entries[:2 * n].numpy().astype(np.int64).reshape(n, 2) & 0xFFFFFFFF
+        bits, rows = w[:, 0], w[:, 1]
+    ents = list(zip(bits.tolist(), rows.tolist()))
+    off, starts = form.offsets.numpy(), form.starts.numpy()
+    return [[ents[starts[i] + off[i, c]:starts[i] + off[i, c + 1]] for c in range(ct)]
+            for i in range(len(starts) - 1)]
+
+
+FORM_CASES = [  # (payload, wt, col_tile, R): partial last row chunks but for 1024
+    ("bf16", 16, 64, 600),
+    ("bf16", 8, 48, 1024),
+    ("f32", 24, 64, 520),
+    ("f32", 8, 300, 264),
+]
+
+
+@pytest.mark.parametrize("pdt, wt, ct, R", FORM_CASES)
+def test_rmv_form_plain_holds_each_stored_slot_once_in_order(pdt, wt, ct, R):
+    from single_algebra_tpu_torch.ops import spmm_kernel as sk
+
+    ntiles = 2
+    vals, ids = form_payload(40, ntiles, wt, R, ct, pdt)
+    form = tiled_ell_rmv_form_plain(vals, ids, wt=wt, ntiles=ntiles, col_tile=ct)
+    want = form_by_loops(vals, ids, wt=wt, ntiles=ntiles, ct=ct)
+    # each stored slot once, by column, then in (j, warp, slot, lane) order
+    assert decode_form(form) == want
+    v = vals.float()
+    stored = int(((v != 0) & (ids >= 0) & (ids < ct)).sum())
+    words = 1 if pdt == "bf16" else 2
+    assert int(form.starts[-1]) == stored and form.entries.shape == (stored * words + 4,)
+    assert not form.entries[stored * words:].any()  # the 16 bytes of padding
+    nrc = -(-R // 256)
+    off = form.offsets
+    assert off.dtype == torch.int32 and off.shape == (ntiles * nrc, -(-(ct + 1) // 4) * 4)
+    counts = torch.tensor([sum(len(c) for c in item) for item in want])
+    assert (off[:, 0] == 0).all() and (off[:, 1:] >= off[:, :-1]).all()
+    assert (off[:, ct:] == counts[:, None]).all()
+    assert form.starts.dtype == torch.int64 and form.starts[0] == 0
+    assert torch.equal(form.starts[1:] - form.starts[:-1], counts)
+    sched = form.schedule
+    ng = -(-ct // 256)
+    assert sched.dtype == torch.uint8 and sched.shape == (ntiles * nrc, ng, 256)
+    assert form.nbytes == (stored * words * 4 + 16 + off.numel() * 4 + form.starts.numel() * 8
+                           + sched.numel())
+    # slot 16 w + S j + g of a group's schedule (S columns a warp step): its
+    # (count, column)-descending i-th column, i = S (16 j + (w if j even else
+    # 15 - w)) + g
+    S = sk._RMV_SCHED_COLS
+    i = np.arange(256)
+    j, pos = i // (16 * S), (i // S) % 16
+    slot = 16 * np.where(j % 2 == 1, 15 - pos, pos) + S * j + i % S
+    col_counts = [[len(c) for c in item] + [0] * (ng * 256 - ct) for item in want]
+    for it in range(ntiles * nrc):
+        for cg in range(ng):
+            cols = sched[it, cg].numpy().astype(np.int64)[slot]
+            assert sorted(cols) == list(range(256))
+            keys = [col_counts[it][cg * 256 + c] * 256 + c for c in cols]
+            assert keys == sorted(keys, reverse=True)
+
+
+@pytest.mark.parametrize("pdt, odt, kp", CASES + [("f32", "bf16", 40)])
+def test_rmv_with_a_plain_form_matches_plain(pdt, odt, kp):
+    ntiles, wt, ct, R = 3, 16, 128, 1024
+    vals, ids = form_payload(41, ntiles, wt, R, ct, pdt)
+    Ct = operand(42, kp, R, odt)
+    kw = dict(wt=wt, ntiles=ntiles, col_tile=ct, block_rows=128)
+    form = tiled_ell_rmv_form(vals, ids, wt=wt, ntiles=ntiles, col_tile=ct)  # the plain builder
+    got = tiled_ell_rmv_t(vals, ids, Ct, form=form, **kw)
+    want = tiled_ell_rmv_t_plain(vals, ids, Ct, **kw)
+    # the CPU route checks a form and runs the plain version
+    assert got.dtype == want.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_rmv_refuses_another_payloads_form():
+    vals, ids = payload(43, 2, 8, 256, 64)
+    Ct = operand(44, 8, 256, "f32")
+    kw = dict(wt=8, ntiles=2, col_tile=64, block_rows=128)
+    form = tiled_ell_rmv_form_plain(vals, ids, wt=8, ntiles=2, col_tile=64)
+    with pytest.raises(ValueError):  # another column tile
+        tiled_ell_rmv_t(vals, ids, Ct, form=form, **dict(kw, col_tile=32, ntiles=2))
+    with pytest.raises(ValueError):  # another payload dtype
+        tiled_ell_rmv_t(vals.to(torch.bfloat16), ids, Ct, form=form, **kw)
+    with pytest.raises(TypeError):
+        tiled_ell_rmv_t(vals, ids, Ct, form=(form.entries, form.offsets), **kw)
+    with pytest.raises(TypeError):  # float64 payloads have no form
+        tiled_ell_rmv_form_plain(vals.double(), ids, wt=8, ntiles=2, col_tile=64)
+
+
+def counts_matrix(seed, n, p, *, frac):
+    """A sparse float32 count matrix with a few heavy rows (overflow on
+    both sides of the tiled payload)."""
+
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    X = sp.random(n, p, density=0.02, format="lil", random_state=rng,
+                  data_rvs=lambda k: rng.integers(1, 9, k) + (rng.random(k) if frac else 0))
+    for r in (10, 211, 400):
+        X[r, 100:600] = rng.integers(1, 9, 500)
+    return X.tocsr().astype(np.float32)
+
+
+def payload_device_bytes(op):
+    arrays = (op.tdata, op.tdata_lo, op.tlocal, op.ov_data, op.ov_ids, op.ovt_data, op.ovt_ids)
+    return sum(a.numel() * a.element_size() for a in arrays if a is not None)
+
+
+def test_bf16_payload_and_its_form_fit_payload_bytes():
+    """The engine's capacity charge (8 bytes a slot, as the JAX package's)
+    covers a bf16-exact payload (6 bytes a slot) and its rmv form."""
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator
+
+    m = SparseMatrix.from_scipy(counts_matrix(45, 2000, 1400, frac=False), device="cpu")
+    op = TiledSparseOperator.from_matrix(m)
+    assert op.tdata.dtype == torch.bfloat16 and op.tdata_lo is None
+    wt, nt, ct = op.meta[:3]
+    form = tiled_ell_rmv_form_plain(op.tdata, op.tlocal, wt=wt, ntiles=nt, col_tile=ct)
+    assert payload_device_bytes(op) + form.nbytes <= TiledSparseOperator.payload_bytes(m)
+
+
+def tiled_matrix(seed, values):
+    """``counts_matrix``: bf16-exact counts (a hi payload), fractional
+    values (hi and lo), or with a denser layer, so that wt > 16 (float32)."""
+
+    import scipy.sparse as sp
+
+    X = counts_matrix(seed, 2000, 1400, frac=values == "frac")
+    if values == "wide":
+        rng = np.random.default_rng(seed + 1)
+        X = (X + sp.random(2000, 1400, density=0.12, format="csr", random_state=rng,
+                           data_rvs=rng.random)).tocsr().astype(np.float32)
+    return X
+
+
+@pytest.mark.parametrize("values", ["counts", "frac", "wide"])
+def test_form_charge_covers_the_payload_and_its_forms(values):
+    """What ``fits`` charges on a card, ``payload_bytes`` plus
+    ``form_charge``, holds the payload and every rmv form the operator
+    keeps: one of a hi-only or float32 payload, two of a hi and lo one."""
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator, form_charge
+    from single_algebra_tpu_torch.ops.spmm_kernel import rmv_form_nbytes
+
+    m = SparseMatrix.from_scipy(tiled_matrix(46, values), device="cpu")
+    op = TiledSparseOperator.from_matrix(m)
+    wt, nt, ct = op.meta[:3]
+    kind = {"counts": (torch.bfloat16, False), "frac": (torch.bfloat16, True),
+            "wide": (torch.float32, False)}[values]
+    assert (op.tdata.dtype, op.tdata_lo is not None) == kind
+    halves = [td for td in (op.tdata, op.tdata_lo) if td is not None]
+    forms = [tiled_ell_rmv_form_plain(td, op.tlocal, wt=wt, ntiles=nt, col_tile=ct)
+             for td in halves]
+    R = op.tdata.shape[1]
+    for f in forms:
+        assert f.nbytes == rmv_form_nbytes(int(f.starts[-1]), R, nt, ct, f.dtype)
+    charge = form_charge(m, wt, nt, R)
+    held = payload_device_bytes(op) + sum(f.nbytes for f in forms)
+    assert held <= TiledSparseOperator.payload_bytes(m) + charge
+    if values != "counts":  # a payload with no slack is charged each form whole
+        assert charge >= sum(f.nbytes for f in forms)
+    # the CPU keeps no form, and plans as the JAX package does
+    assert TiledSparseOperator.form_bytes(m) == 0
+    assert TiledSparseOperator.fits(m, budget_bytes=TiledSparseOperator.payload_bytes(m))
+
+
+def test_cpu_operator_builds_no_form():
+    """On the CPU the operator's rmv runs the plain route: no form is kept
+    and the ``tiled.rmv`` span says so."""
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator
+    from single_algebra_tpu_torch.utils import tracing
+
+    X = counts_matrix(46, 900, 700, frac=True)
+    op = TiledSparseOperator.from_matrix(SparseMatrix.from_scipy(X, device="cpu"))
+    C = torch.from_numpy(np.random.default_rng(47).standard_normal((900, 6)).astype(np.float32))
+    with tracing.recording() as rec:
+        got = op.rmv(C)
+        op.rmv_fast(C)
+    assert [s["attrs"]["form"] for s in rec.spans() if s["name"] == "tiled.rmv"] == ["none"] * 2
+    assert op._forms == {}
+    want = X.T.astype(np.float64) @ C.numpy().astype(np.float64)
+    assert rel_err(got.numpy(), want) <= 1e-5
+
+
 # -- on the card ------------------------------------------------------------
 
 
@@ -390,3 +637,154 @@ def test_cuda_operator_matches_cpu_operator(cuda):
         assert float((got - want).abs().max() / want.abs().max()) <= 1e-5, name
     assert cuda_lib.launch_counts["tiled_ell_spmm_t"] == 3  # hi + lo, then hi
     assert cuda_lib.launch_counts["tiled_ell_rmv_t"] == 3
+
+
+CUDA_FORM_CASES = [  # (payload, wt, col_tile, R): slot chunks, column groups, partial chunks
+    ("bf16", 16, 256, 3 * 1024),
+    ("bf16", 24, 128, 2600),
+    ("f32", 24, 256, 2600),
+    ("f32", 8, 512, 1032),
+    ("bf16", 40, 1024, 1536),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("pdt, wt, ct, R", CUDA_FORM_CASES)
+def test_cuda_rmv_form_equals_the_plain_builders(cuda, pdt, wt, ct, R):
+    ntiles = 5
+    vals, ids = form_payload(50, ntiles, wt, R, ct, pdt)
+    want = tiled_ell_rmv_form_plain(vals, ids, wt=wt, ntiles=ntiles, col_tile=ct)
+    cuda_lib.reset_launch_counts()
+    got = tiled_ell_rmv_form(vals.to(cuda), ids.to(cuda), wt=wt, ntiles=ntiles, col_tile=ct)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tiled_ell_rmv_form"] == 1
+    assert (got.dtype, got.R, got.ntiles, got.col_tile) == (want.dtype, R, ntiles, ct)
+    for name in ("entries", "offsets", "starts", "schedule"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b), name
+
+
+CUDA_FORM_RMV_CASES = [  # (payload, operand, wt, kp, R, ntiles, col_tile)
+    ("bf16", "bf16", 16, 64, 3 * 1024, 7, 256),
+    ("bf16", "f32", 16, 64, 3 * 1024, 7, 256),
+    ("f32", "f32", 24, 8, 3 * 1024, 7, 256),
+    ("f32", "bf16", 8, 40, 3 * 1024, 7, 512),
+    ("bf16", "bf16", 16, 16, 3 * 1024, 7, 128),
+    ("bf16", "f32", 8, 56, 64 * 1024, 2, 128),  # several row ranges
+    ("bf16", "bf16", 16, 64, 64 * 1024, 2, 256),
+    ("f32", "f32", 24, 32, 64 * 1024, 2, 256),
+    ("f32", "f32", 40, 64, 3 * 1024, 7, 256),  # more pieces a row chunk than piece stages
+    ("bf16", "bf16", 64, 64, 3 * 1024, 7, 256),
+]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("pdt, odt, wt, kp, R, ntiles, ct", CUDA_FORM_RMV_CASES)
+def test_cuda_rmv_with_a_form_equals_rmv_without(cuda, pdt, odt, wt, kp, R, ntiles, ct):
+    from single_algebra_tpu_torch.ops.spmm_kernel import _rmv_plan
+
+    vals, ids = form_payload(51, ntiles, wt, R, ct, pdt)
+    vals, ids = vals.to(cuda), ids.to(cuda)
+    Ct = operand(52, kp, R, odt).to(cuda)
+    kw = dict(wt=wt, ntiles=ntiles, col_tile=ct)
+    if R > 8192:
+        assert _rmv_plan(R, kp, ntiles, ct, vals.dtype, Ct.dtype).nranges > 1
+    form = tiled_ell_rmv_form(vals, ids, **kw)
+    cuda_lib.reset_launch_counts()
+    got = tiled_ell_rmv_t(vals, ids, Ct, form=form, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tiled_ell_rmv_form"] == 0
+    bare = tiled_ell_rmv_t(vals, ids, Ct, **kw)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tiled_ell_rmv_form"] == 1
+    assert cuda_lib.launch_counts["tiled_ell_rmv_t"] == 2
+    assert torch.equal(got, bare)
+    want = tiled_ell_rmv_t_plain(vals, ids, Ct, **kw)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    for _ in range(2):  # no scheduling dependence
+        assert torch.equal(tiled_ell_rmv_t(vals, ids, Ct, form=form, **kw), got)
+
+
+def _operators(route, X, cuda):
+    """The tiled operator on the card and its CPU twin: from a matrix, or
+    the second slab of a two-entry mesh."""
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator
+    from single_algebra_tpu_torch.parallel.sharded import Mesh, ShardedTiled
+
+    ops = []
+    for dev in (cuda, torch.device("cpu")):
+        m = SparseMatrix.from_scipy(X, device=dev)
+        if route == "from_matrix":
+            ops.append(TiledSparseOperator.from_matrix(m))
+        else:
+            ops.append(ShardedTiled.from_matrix(m, Mesh((dev,) * 2)).slabs[1])
+    return ops
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("route", ["from_matrix", "mesh_slab"])
+def test_cuda_operator_buckets_each_half_once(cuda, route):
+    from single_algebra_tpu_torch.linalg.operators import CenteredOperator
+    from single_algebra_tpu_torch.utils import tracing
+
+    X = counts_matrix(53, 1800, 700, frac=True)
+    gpu, cpu = _operators(route, X, cuda)
+    assert gpu.tdata_lo is not None
+    C = torch.from_numpy(np.random.default_rng(54).standard_normal(
+        (gpu.shape[0], 24)).astype(np.float32))
+    centered = CenteredOperator(gpu, torch.zeros(gpu.shape[1], device=cuda))
+    calls = [("rmv_fast", gpu.rmv_fast), ("rmv", gpu.rmv),
+             ("rmv_precise", centered.rmv_precise), ("rmv_fast", gpu.rmv_fast),
+             ("rmv", gpu.rmv)]
+    cuda_lib.reset_launch_counts()
+    with tracing.recording() as rec:
+        got = [fn(C.to(cuda)) for _, fn in calls]
+        torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["tiled_ell_rmv_form"] == 2  # hi, then lo
+    assert cuda_lib.launch_counts["tiled_ell_rmv_t"] == 1 + 2 + 2 + 1 + 2
+    forms = [s["attrs"]["form"] for s in rec.spans() if s["name"] == "tiled.rmv"]
+    assert forms == ["built", "built", "reused", "reused", "reused"]
+    assert set(gpu._forms) == {"hi", "lo"}
+    want = {"rmv_fast": cpu.rmv_fast(C), "rmv": cpu.rmv(C),
+            "rmv_precise": CenteredOperator(cpu, torch.zeros(cpu.shape[1])).rmv_precise(C)}
+    for (name, _), out in zip(calls, got):
+        err = float((out.cpu() - want[name]).abs().max() / want[name].abs().max())
+        assert err <= 1e-5, (name, err)
+    assert torch.equal(got[0], got[3]) and torch.equal(got[1], got[4])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("values", ["frac", "wide"])
+def test_cuda_operator_forms_fit_what_fits_charges(cuda, values):
+    """A hi and lo payload and a float32 one keep forms past the 8-byte
+    charge: ``fits`` charges them, and what the card holds after ``rmv``
+    (both halves' forms) stays within that charge."""
+
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator
+
+    m = SparseMatrix.from_scipy(tiled_matrix(56, values), device=cuda)
+    op = TiledSparseOperator.from_matrix(m)
+    op.rmv(torch.ones((2000, 8), device=cuda))
+    assert set(op._forms) == ({"hi", "lo"} if values == "frac" else {"hi"})
+    held = payload_device_bytes(op) + sum(f.nbytes for f in op._forms.values())
+    payload, forms = TiledSparseOperator.payload_bytes(m), TiledSparseOperator.form_bytes(m)
+    assert forms > 0
+    assert held <= payload + forms
+    assert TiledSparseOperator.fits(m, budget_bytes=payload + forms)
+    assert not TiledSparseOperator.fits(m, budget_bytes=payload + forms - 1)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_bf16_operator_and_its_form_fit_payload_bytes(cuda):
+    from single_algebra_tpu_torch import SparseMatrix
+    from single_algebra_tpu_torch.linalg.operators import TiledSparseOperator
+
+    m = SparseMatrix.from_scipy(counts_matrix(55, 2000, 1400, frac=False), device=cuda)
+    op = TiledSparseOperator.from_matrix(m)
+    op.rmv_fast(torch.ones((2000, 8), device=cuda))
+    assert op.tdata_lo is None and set(op._forms) == {"hi"}
+    held = payload_device_bytes(op) + op._forms["hi"].nbytes
+    assert held <= TiledSparseOperator.payload_bytes(m)
