@@ -54,7 +54,7 @@ from ..ops.spmm import ell_spmm
 from ..ops.spmm_kernel import (
     rmv_form_nbytes, tiled_ell_rmv_form, tiled_ell_rmv_t, tiled_ell_spmm_t,
 )
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 
 __all__ = [
     "SparseOperator",
@@ -312,7 +312,8 @@ def _bf16_dot(a: torch.Tensor, b: torch.Tensor, over_rows: bool) -> torch.Tensor
     ``dense_products`` line: on an H100 at 400,000 x 30,000 the 3-column
     operand of a one-column precise product took 19.1 ms unpadded, 8.8 ms
     padded); the reduction runs in blocks. Elsewhere row blocks of ``a``
-    are widened: products of bf16 values are exact in float32."""
+    are widened: products of bf16 values are exact in float32. Each GEMM
+    call (cuBLAS on a card) adds 1 to the counter ``dense.cublas_calls``."""
 
     if a.device.type == "cuda":
         k = b.shape[1]
@@ -322,13 +323,25 @@ def _bf16_dot(a: torch.Tensor, b: torch.Tensor, over_rows: bool) -> torch.Tensor
         # float32 partials added: one cuBLAS call over all 400,000 rows of
         # the smoke's densified path is the less precise (its
         # dense_products line records both forms), and NMF's
-        # multiplicative updates compound a product's error
+        # multiplicative updates compound a product's error. Over columns,
+        # the contiguous axis of ``a``, the blocks stop at a multiple of 8:
+        # a block whose extent is not one runs in an unaligned cuBLAS
+        # kernel (at 600,000 x 36,601 on an H100 the last 3,833 columns
+        # took 4.6 ms of a 19.6 ms pass); the last ``p % 8`` columns are
+        # added in float32, where products of bf16 values are exact
+        red = a.shape[0 if over_rows else 1]
+        end = red if over_rows else red - red % 8
         out = None
-        for j0 in range(0, a.shape[0 if over_rows else 1], _RED_BLOCK):
-            j1 = j0 + _RED_BLOCK
+        for j0 in range(0, end, _RED_BLOCK):
+            j1 = min(j0 + _RED_BLOCK, end)
+            count("dense.cublas_calls")
             part = (torch.mm(a[j0:j1].T, b[j0:j1], out_dtype=torch.float32) if over_rows
                     else torch.mm(a[:, j0:j1], b[j0:j1], out_dtype=torch.float32))
             out = part if out is None else out.add_(part)
+        if end < red:
+            count("dense.cublas_calls")
+            tail = (a[:, end:].float(), b[end:].float())
+            out = torch.mm(*tail) if out is None else out.addmm_(*tail)
         return out[:, :k]
     n, p = a.shape
     step = max((64 << 20) // max(4 * p, 1), 1)
@@ -336,11 +349,44 @@ def _bf16_dot(a: torch.Tensor, b: torch.Tensor, over_rows: bool) -> torch.Tensor
     if not over_rows:
         out = torch.empty((n, b.shape[1]), dtype=torch.float32)
         for r0 in range(0, n, step):
+            count("dense.cublas_calls")
             out[r0:r0 + step] = a[r0:r0 + step].float() @ bf
         return out
     out = torch.zeros((p, b.shape[1]), dtype=torch.float32)
     for r0 in range(0, n, step):
+        count("dense.cublas_calls")
         out.addmm_(a[r0:r0 + step].float().T, bf[r0:r0 + step])
+    return out
+
+
+def _row_stride(p: int) -> int:
+    """Elements per row of a stored dense bf16 half: ``p`` rounded up to a
+    multiple of 8, so that every row starts 16-byte aligned. cuBLAS's bf16
+    tensor-core GEMMs take narrower loads over an odd leading dimension:
+    on an H100 at 600,000 x 36,601 (``tools/dense_stride.py``) each
+    product ran 1.9x (64-column operand) to 3.2x (152) slower over the
+    odd stride than over the padded one."""
+
+    return -(-p // 8) * 8
+
+
+def _dense_zeros(n: int, p: int, device) -> torch.Tensor:
+    """A zeroed bf16 ``[n, _row_stride(p)]`` half, whole (the caller keeps
+    its ``[:, :p]`` view)."""
+
+    return torch.zeros((n, _row_stride(p)), dtype=torch.bfloat16, device=device)
+
+
+def _padded_half(h: torch.Tensor, device, block_bytes: int) -> torch.Tensor:
+    """bf16 ``h`` ([n, p], any device) -> its ``[:, :p]`` view in padded
+    storage on ``device``, copied in row blocks of about ``block_bytes``
+    (a strided copy of the whole would stage a second dense copy)."""
+
+    n, p = h.shape
+    out = _dense_zeros(n, p, device)[:, :p]
+    step = max(block_bytes // max(2 * p, 1), 1)
+    for r0 in range(0, n, step):
+        out[r0:r0 + step].copy_(h[r0:r0 + step])
     return out
 
 
@@ -361,9 +407,12 @@ class DensifiedOperator:
       of the payload is read once. Every product accumulates in float32.
 
     The dense array is laid out ``[n, p]``; ``rmv`` contracts over rows
-    through a transposed view, never a transposed copy. The capacity rule
-    (:meth:`fits`): the dense form (twice that with ``lo``) must fit 0.6
-    of device memory, the rest being the solvers' workspace.
+    through a transposed view, never a transposed copy. The halves that
+    :meth:`from_matrix` and :meth:`from_arrays` build are ``[:, :p]`` views
+    of storage whose rows are padded to :func:`_row_stride` elements (at
+    most 7 zero columns, never read). The capacity rule (:meth:`fits`): the
+    padded dense form (twice that with ``lo``) must fit 0.6 of device
+    memory, the rest being the solvers' workspace.
     """
 
     hi: torch.Tensor  # [n, p] bfloat16
@@ -415,26 +464,28 @@ class DensifiedOperator:
         if device is None:
             device = m.device.type == "cuda"
         t0 = time.perf_counter()
-        if device:
-            src = m._layout_for("row")
-            src._require_host_structure()
-            vals = np.ascontiguousarray(src._csr_data_host(), np.float32)
-            indptr, indices, vals = (
-                torch.from_numpy(a).to(m.device)
-                for a in (src._h_indptr, src._h_indices, vals)
-            )
-            _sync(m.device)
-            t1 = time.perf_counter()
-            hi, lo = _scatter_bf16(indptr, indices, vals, *m.shape, cls._BLOCK_BYTES)
-            _sync(m.device)
-            seconds = {"upload": t1 - t0, "device_densify": time.perf_counter() - t1}
-        else:
-            hi, lo = cls.densify_host(m)
-            t1 = time.perf_counter()
-            hi = hi.to(m.device)
-            lo = None if lo is None else lo.to(m.device)
-            _sync(m.device)
-            seconds = {"host_densify": t1 - t0, "upload": time.perf_counter() - t1}
+        with span("dense.build", route="device" if device else "host"):
+            if device:
+                src = m._layout_for("row")
+                src._require_host_structure()
+                arrays = (src._h_indptr, src._h_indices,
+                          np.ascontiguousarray(src._csr_data_host(), np.float32))
+                count("dense.upload_bytes", sum(a.nbytes for a in arrays))
+                indptr, indices, vals = (torch.from_numpy(a).to(m.device) for a in arrays)
+                _sync(m.device)
+                t1 = time.perf_counter()
+                hi, lo = _scatter_bf16(indptr, indices, vals, *m.shape, cls._BLOCK_BYTES)
+                _sync(m.device)
+                seconds = {"upload": t1 - t0, "device_densify": time.perf_counter() - t1}
+            else:
+                halves = cls.densify_host(m)
+                t1 = time.perf_counter()
+                count("dense.upload_bytes",
+                      sum(h.numel() * h.element_size() for h in halves if h is not None))
+                hi, lo = (None if h is None else _padded_half(h, m.device, cls._BLOCK_BYTES)
+                          for h in halves)
+                _sync(m.device)
+                seconds = {"host_densify": t1 - t0, "upload": time.perf_counter() - t1}
         op = cls(hi, lo, m.shape)
         op.build_seconds = seconds
         return op
@@ -443,7 +494,8 @@ class DensifiedOperator:
     def from_arrays(cls, hi, lo, shape, *, device="cuda") -> "DensifiedOperator":
         """Operator on ``device`` from numpy halves: bf16 bit patterns as
         uint16 or ``ml_dtypes.bfloat16`` arrays, e.g. the JAX operator's
-        ``np.asarray(op.hi)`` / ``np.asarray(op.lo)`` (``lo`` may be None)."""
+        ``np.asarray(op.hi)`` / ``np.asarray(op.lo)`` (``lo`` may be None),
+        copied into padded-stride storage."""
 
         n, p = int(shape[0]), int(shape[1])
         halves = []
@@ -454,7 +506,7 @@ class DensifiedOperator:
             t = _bf16_from_bits(a)
             if tuple(t.shape) != (n, p):
                 raise ValueError(f"dense half must be [{n}, {p}], got {tuple(t.shape)}")
-            halves.append(t.to(device) if torch.device(device).type != "cpu" else t.clone())
+            halves.append(_padded_half(t, device, cls._BLOCK_BYTES))
         return cls(halves[0], halves[1], (n, p))
 
     # -- capacity planning (the 'auto' engine selector's input) ---------
@@ -475,7 +527,7 @@ class DensifiedOperator:
         if budget_bytes is None:
             budget_bytes = cls.hbm_budget_bytes(device)
         n, p = shape
-        return 2 * n * p * (2 if needs_lo else 1) <= budget_bytes
+        return 2 * n * _row_stride(p) * (2 if needs_lo else 1) <= budget_bytes
 
     # -- products --------------------------------------------------------
 
@@ -487,15 +539,34 @@ class DensifiedOperator:
     def device(self):
         return self.hi.device
 
+    def _product(self, name: str, operand, over_rows: bool, half: str, precise: bool):
+        n, p = self.shape
+        with span(name, width=int(operand.shape[1]), precise=precise, half=half):
+            count("dense.bytes_read", 2 * n * p)
+            return _bf16_dot(getattr(self, half), operand, over_rows)
+
+    def _mv(self, B, half: str = "hi", precise: bool = False):
+        """``A_half @ B`` for a bf16 operand ``B`` ([p, w]) -> float32
+        [n, w]: the one product primitive of this direction, one pass over
+        the payload half ``half`` ("hi" or "lo")."""
+
+        return self._product("dense.mv", B, False, half, precise)
+
+    def _rmv(self, C, half: str = "hi", precise: bool = False):
+        """``A_half^T @ C`` for a bf16 operand ``C`` ([n, w]) -> float32
+        [p, w]: the one product primitive of this direction."""
+
+        return self._product("dense.rmv", C, True, half, precise)
+
     def mv(self, B):
         """A @ B: hi by the bf16-rounded operand, float32 accumulation."""
 
-        return _bf16_dot(self.hi, B.to(torch.bfloat16), False).to(B.dtype)
+        return self._mv(B.to(torch.bfloat16)).to(B.dtype)
 
     def rmv(self, C):
         """A^T @ C: hi by the bf16-rounded operand, float32 accumulation."""
 
-        return _bf16_dot(self.hi, C.to(torch.bfloat16), True).to(C.dtype)
+        return self._rmv(C.to(torch.bfloat16)).to(C.dtype)
 
     def _precise(self, B, over_rows: bool):
         # the matrix AND the operand are split: rounding the operand (the
@@ -503,11 +574,12 @@ class DensifiedOperator:
         # put first-order error into the singular values
         k = B.shape[1]
         stacked = torch.cat(bf16_terms(B.float(), OPERAND_TERMS), dim=1)  # [., 3k]
+        product = self._rmv if over_rows else self._mv
         out = None
-        for a in (self.hi, self.lo):
-            if a is None:
+        for half in ("hi", "lo"):
+            if getattr(self, half) is None:
                 continue
-            parts = _bf16_dot(a, stacked, over_rows)
+            parts = product(stacked, half, precise=True)
             term = parts[:, :k] + parts[:, k:2 * k]
             for i in range(2, OPERAND_TERMS):
                 term = term + parts[:, i * k:(i + 1) * k]
@@ -549,7 +621,8 @@ def _sync(device) -> None:
 def _scatter_bf16(indptr, indices, vals, n: int, p: int, block_bytes: int):
     """CSR arrays (tensors on one device, no duplicate entries) -> dense
     bf16 ``(hi [n, p], lo | None)`` there: hi = bf16(v), lo = bf16(v - hi)
-    scattered into zeroed arrays one row block at a time (about
+    scattered into zeroed padded-stride arrays (:func:`_dense_zeros`; the
+    ``[:, :p]`` views are returned) one row block at a time (about
     ``block_bytes`` of int64 indices each), so nothing dense is ever held
     in float32. ``lo`` is None when every value is bf16-exact."""
 
@@ -557,8 +630,9 @@ def _scatter_bf16(indptr, indices, vals, n: int, p: int, block_bytes: int):
     hv = vals.to(torch.bfloat16)
     lv = (vals - hv.float()).to(torch.bfloat16)
     exact = not bool((lv != 0).any())
-    hi = torch.zeros((n, p), dtype=torch.bfloat16, device=dev)
-    lo = None if exact else torch.zeros((n, p), dtype=torch.bfloat16, device=dev)
+    hi = _dense_zeros(n, p, dev)
+    lo = None if exact else _dense_zeros(n, p, dev)
+    stride = hi.shape[1]
     per_row = max(vals.numel() / max(n, 1), 1.0)
     step = max(int(block_bytes / 16 / per_row), 1)  # rows per block
     counts = indptr[1:] - indptr[:-1]
@@ -568,11 +642,11 @@ def _scatter_bf16(indptr, indices, vals, n: int, p: int, block_bytes: int):
         rows = torch.repeat_interleave(
             torch.arange(r0, r1, device=dev, dtype=torch.int64), counts[r0:r1]
         )
-        flat = rows * p + indices[a:b].to(torch.int64)
+        flat = rows * stride + indices[a:b].to(torch.int64)
         hi.view(-1)[flat] = hv[a:b]
         if lo is not None:
             lo.view(-1)[flat] = lv[a:b]
-    return hi, lo
+    return hi[:, :p], None if lo is None else lo[:, :p]
 
 
 def _kp(k: int) -> int:

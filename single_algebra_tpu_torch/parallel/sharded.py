@@ -48,6 +48,7 @@ from ..linalg.operators import (
     TiledSparseOperator,
     form_charge,
     _coo_to_csr_arrays,
+    _dense_zeros,
     _scatter_bf16,
 )
 from ..sparse import convert as _cv
@@ -505,7 +506,7 @@ class ShardedDensified(_RowSharded):
         if any(h[1] is not None for h in halves):
             for h in halves:
                 if h[1] is None:  # an exact slab's residual is zero
-                    h[1] = torch.zeros_like(h[0])
+                    h[1] = _dense_zeros(rs, p, h[0].device)[:, :p]
         slabs = tuple(DensifiedOperator(hi, lo, (rs, p)) for hi, lo in halves)
         return cls(slabs, (n, p), rs, mesh)
 

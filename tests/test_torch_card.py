@@ -571,3 +571,28 @@ def test_cuda_densified_products_reduce_in_blocks(cuda):
     A = torch.from_numpy(X.toarray()).to(cuda).double()
     for got, want in ((op.mv_precise(B), A @ B.double()), (op.rmv_precise(C), A.T @ C.double())):
         assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-6
+
+
+@pytest.mark.requires_cuda
+def test_cuda_padded_stride_agrees_with_the_unpadded_form(cuda):
+    """On the card the dense half of 1,001 columns is stored in rows of
+    1,008 and kept as its [n, 1001] view; cuBLAS's products over it and
+    the column statistics equal those over the same half stored
+    contiguously (1e-6 of max |result|: another kernel may sum in another
+    order)."""
+
+    from single_algebra_tpu_torch.linalg.operators import DensifiedOperator
+
+    X = clustered_counts(20_000, 1001, seed=5)
+    op = DensifiedOperator.from_matrix(SparseMatrix.from_scipy(X))
+    assert op.lo is None and tuple(op.hi.shape) == X.shape and op.hi.stride() == (1008, 1)
+    plain = DensifiedOperator(op.hi.contiguous(), None, X.shape)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    B = torch.randn((1001, 60), generator=gen, device=cuda)
+    C = torch.randn((20_000, 60), generator=gen, device=cuda)
+    for name, arg in (("mv", B), ("rmv", C), ("mv_precise", B), ("rmv_precise", C)):
+        got, ref = getattr(op, name)(arg), getattr(plain, name)(arg)
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max()), name
+    for got, ref in zip(op.col_stats(), plain.col_stats()):
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())

@@ -187,3 +187,76 @@ def test_from_arrays_round_trip(both):
     assert torch.equal(op2.hi, top.hi)
     with pytest.raises(ValueError):
         DensifiedOperator.from_arrays(hi[:10], None, X.shape, device="cpu")
+
+
+# -- an odd number of columns (GRCh38's 36,601), and the padded row stride -------
+
+
+def odd_matrix(kind):
+    """91 columns: the dense form's rows then need padding to 96 elements."""
+
+    X = cluster_counts(300, 91, n_clusters=6, seed=3).astype(np.float32)
+    if kind == "frac":
+        X = sp.csr_matrix((X.data * np.float32(1.2345), X.indices, X.indptr), shape=X.shape)
+    return X
+
+
+@pytest.mark.parametrize("kind", ["exact", "frac"])
+@pytest.mark.parametrize("route", ["from_matrix", "from_arrays"])
+def test_odd_width_matches_jax(kind, route):
+    X = odd_matrix(kind)
+    jop = jops.DensifiedOperator.from_matrix(JMatrix.from_scipy(X))
+    if route == "from_matrix":
+        top = DensifiedOperator.from_matrix(SparseMatrix.from_scipy(X, device="cpu"))
+    else:
+        top = DensifiedOperator.from_arrays(
+            np.asarray(jop.hi), None if jop.lo is None else np.asarray(jop.lo), X.shape,
+            device="cpu")
+    np.testing.assert_array_equal(bits(top.hi), bits(jop.hi))
+    assert (top.lo is None) == (jop.lo is None) == (kind == "exact")
+    if top.lo is not None:
+        np.testing.assert_array_equal(bits(top.lo), bits(jop.lo))
+    rng = np.random.default_rng(9)
+    B = rng.standard_normal((91, 5)).astype(np.float32)
+    C = rng.standard_normal((300, 5)).astype(np.float32)
+    D = X.toarray().astype(np.float64)
+    for got, jgot, ref, tol in (
+        (top.mv(torch.from_numpy(B)), jop.mv(jnp.asarray(B)), D @ B, 1e-5),
+        (top.rmv(torch.from_numpy(C)), jop.rmv(jnp.asarray(C)), D.T @ C, 1e-5),
+        (top.mv_precise(torch.from_numpy(B)), jop.mv_precise(jnp.asarray(B)), D @ B, 1e-6),
+        (top.rmv_precise(torch.from_numpy(C)), jop.rmv_precise(jnp.asarray(C)), D.T @ C, 1e-6),
+    ):
+        assert np.abs(got.numpy() - np.asarray(jgot)).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("kind", ["exact", "frac"])
+@pytest.mark.parametrize("route", ["host", "device", "arrays"])
+def test_padded_stride_agrees_with_the_unpadded_form(kind, route):
+    """Every route stores rows of 96 elements for 91 columns and keeps the
+    [n, 91] view; products and column statistics equal those of the same
+    halves stored contiguously (1e-6 of max |result|)."""
+
+    X = odd_matrix(kind)
+    m = SparseMatrix.from_scipy(X, device="cpu")
+    if route == "arrays":
+        hi, lo = DensifiedOperator.densify_host(m)
+        op = DensifiedOperator.from_arrays(bits(hi), None if lo is None else bits(lo), X.shape,
+                                           device="cpu")
+    else:
+        op = DensifiedOperator.from_matrix(m, device=route == "device")
+    halves = [h for h in (op.hi, op.lo) if h is not None]
+    assert all(tuple(h.shape) == X.shape and h.stride() == (96, 1) for h in halves)
+    plain = DensifiedOperator(op.hi.contiguous(),
+                              None if op.lo is None else op.lo.contiguous(), X.shape)
+    assert plain.hi.stride() == (91, 1)
+    rng = np.random.default_rng(10)
+    B = torch.from_numpy(rng.standard_normal((91, 6)).astype(np.float32))
+    C = torch.from_numpy(rng.standard_normal((300, 6)).astype(np.float32))
+    for name, arg in (("mv", B), ("rmv", C), ("mv_precise", B), ("rmv_precise", C)):
+        got, ref = getattr(op, name)(arg), getattr(plain, name)(arg)
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    for got, ref in zip(op.col_stats(), plain.col_stats()):
+        assert float((got - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    budget = 2 * 300 * 96 * (1 if op.lo is None else 2)  # the padded halves
+    assert DensifiedOperator.fits(X.shape, budget, op.lo is not None, device="cpu")
+    assert not DensifiedOperator.fits(X.shape, budget - 1, op.lo is not None, device="cpu")

@@ -90,3 +90,56 @@ def test_tracing_imports_no_jax():
             "assert 'jax' not in sys.modules")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root)
+
+
+# -- the densified engine's spans ------------------------------------------------
+
+
+def _dense_fit(n=3000, p=1001, k=50):
+    """A randomized fit (10 oversamples, 7 power steps, QR) on the
+    densified engine, recorded; an odd ``p``, as in GRCh38's 36,601."""
+
+    import collections
+
+    import scipy.sparse as sp
+
+    from single_algebra_tpu_torch import SparseMatrix, SparsePCABuilder
+    from single_algebra_tpu_torch.types import PowerIterationNormalizer, SVDMethod
+
+    rng = np.random.default_rng(17)
+    X = sp.random(n, p, density=0.02, format="csr", random_state=rng,
+                  data_rvs=lambda size: rng.integers(1, 9, size)).astype(np.float32)
+    with ttracing.recording() as rec:
+        pca = (SparsePCABuilder().n_components(k).engine("dense")
+               .svd_method(SVDMethod.random(10, 7, PowerIterationNormalizer.QR)).build())
+        pca.fit_transform(SparseMatrix.from_scipy(X, device="cpu"))
+    spans = rec.spans()
+    widths = collections.Counter((s["name"], s["attrs"]["width"], s["attrs"]["precise"])
+                                 for s in spans if s["name"] in ("dense.mv", "dense.rmv"))
+    return rec, spans, widths
+
+
+def test_dense_fit_spans_each_pass_with_its_width():
+    """17 passes over the dense form: the sketch and 7 power steps' A @ B
+    (9 with the projection), 7 power steps' A^T @ C and B = Q^T A (8);
+    the precise two take the stacked three-term operand."""
+
+    _, spans, widths = _dense_fit()
+    assert widths == {("dense.mv", 60, False): 8, ("dense.rmv", 60, False): 7,
+                      ("dense.rmv", 180, True): 1, ("dense.mv", 150, True): 1}
+    assert all(s["attrs"]["half"] == "hi" for s in spans if s["name"].startswith("dense.")
+               and s["name"] != "dense.build")  # counts: bf16-exact, no lo half
+
+
+def test_dense_build_counts_its_upload_and_each_pass_its_bytes():
+    n, p = 3000, 1001
+    rec, spans, _ = _dense_fit(n, p)
+    build = [s for s in spans if s["name"] == "dense.build"]
+    assert len(build) == 1 and build[0]["attrs"] == {"route": "host"}
+    assert build[0]["counters"] == {"dense.upload_bytes": 2 * n * p}  # the hi half, no lo
+    passes = [s for s in spans if s["name"] in ("dense.mv", "dense.rmv")]
+    assert all(s["counters"]["dense.bytes_read"] == 2 * n * p for s in passes)
+    assert rec.counters()["dense.bytes_read"] == 17 * n * p * 2
+    # the CPU's blocked reduction: one widened block of rows a pass at this size
+    assert all(s["counters"]["dense.cublas_calls"] == 1 for s in passes)
+    assert rec.counters()["dense.cublas_calls"] == 17
