@@ -41,9 +41,10 @@ from ..linalg.operators import (
     TiledSparseOperator,
 )
 from ..linalg.svd import randomized_svd, svd_flip
+from ..native.build import csr_col_stats
 from ..sparse.matrix import SparseMatrix
 from ..types import SVDMethod, precision_policy
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 
 __all__ = ["SparsePCA", "SparsePCABuilder", "make_engine_operator"]
 
@@ -59,20 +60,29 @@ def _as_matrix(x, device="cuda") -> SparseMatrix:
 
 def _host_col_stats(m: SparseMatrix):
     """(sum_col, sum_col_squared) per column, float64 numpy, from the host
-    CSR arrays; cached on the matrix."""
+    CSR arrays; cached on the matrix. float32 values take one threaded
+    native pass (``native.build.csr_col_stats``), others, or no native
+    library, numpy's two ``bincount``s; the span's ``route`` says which."""
 
     cached = getattr(m, "_host_col_stats_cache", None)
-    with span("pca.host_col_stats", cached=cached is not None):
+    with span("pca.host_col_stats", cached=cached is not None) as current:
         if cached is not None:
             return cached
         src = m._layout_for("row")
-        data = src._csr_data_host().astype(np.float64)
+        data = src._csr_data_host()
         idx = src._h_indices
         p = m.ncols
-        s = np.bincount(idx, weights=data, minlength=p)[:p]
-        sq = np.bincount(idx, weights=data * data, minlength=p)[:p]
-        m._host_col_stats_cache = (s, sq)
-        return s, sq
+        stats = csr_col_stats(data, idx, p)
+        if stats is not None:
+            current.set(route="native")
+            count("pca.col_stats_native")
+        else:
+            current.set(route="numpy")
+            data = data.astype(np.float64)
+            stats = (np.bincount(idx, weights=data, minlength=p)[:p],
+                     np.bincount(idx, weights=data * data, minlength=p)[:p])
+        m._host_col_stats_cache = stats
+        return stats
 
 
 def _needs_lo(m: SparseMatrix) -> bool:

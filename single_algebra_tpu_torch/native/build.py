@@ -1,8 +1,10 @@
 """Lazy g++ build + ctypes bindings of the host converters and of Leiden.
 
 ``ell_convert.cpp`` and ``leiden.cpp`` are the JAX package's native
-sources, copied unchanged (the JAX package's own loader cannot be
-imported: its package ``__init__`` imports jax). Each is compiled with g++
+sources (the JAX package's own loader cannot be imported: its package
+``__init__`` imports jax), ``leiden.cpp`` copied unchanged and
+``ell_convert.cpp`` with one function of the port's added,
+``csr_col_stats_f64`` (the fit's column statistics). Each is compiled with g++
 on first use into the build directory (``build/native/`` beside the
 package, or ``$SINGLE_ALGEBRA_TORCH_BUILD_DIR/native``), under a name
 keyed by the source's hash so an edited source never loads a stale
@@ -135,6 +137,9 @@ def get_lib():
         lib.csr_densify_bf16.restype = ctypes.c_int32
         lib.f32_bf16_exact.argtypes = [f32p, c64]
         lib.f32_bf16_exact.restype = ctypes.c_int32
+        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+        lib.csr_col_stats_f64.argtypes = [f32p, i32p, c64, c64, f64p, f64p, ctypes.c_int32]
+        lib.csr_col_stats_f64.restype = None
         _lib = lib
         return _lib
 
@@ -264,3 +269,28 @@ def csr_densify_bf16(indptr, indices, data, n_rows, n_cols, need_lo):
         lo.ctypes.data if lo is not None else None,
     )
     return hi, lo, bool(exact)
+
+
+def csr_col_stats(data, indices, p, n_threads=0):
+    """Native float64 ``(sum, sum of squares)`` per column of CSR values,
+    one threaded pass (``csr_col_stats_f64``), or None (use the numpy
+    fallback). ``n_threads`` 0 is OpenMP's default; the result does not
+    depend on it."""
+
+    lib = get_lib()
+    if lib is None or data.dtype != np.float32:
+        return None
+    if len(indices) != len(data):
+        raise ValueError(f"{len(data)} values but {len(indices)} column indices")
+    s = np.empty(p, np.float64)
+    sq = np.empty(p, np.float64)
+    lib.csr_col_stats_f64(
+        np.ascontiguousarray(data, np.float32),
+        np.ascontiguousarray(indices, np.int32),
+        len(data),
+        p,
+        s,
+        sq,
+        int(n_threads),
+    )
+    return s, sq

@@ -16,7 +16,11 @@
 #include <cstdint>
 #include <cstring>
 #include <algorithm>
+#include <memory>
 #include <vector>
+#ifdef _OPENMP
+#include <omp.h>
+#endif
 
 extern "C" {
 
@@ -381,6 +385,60 @@ int32_t f32_bf16_exact(const float* data, int64_t n) {
     if (hv != v) return 0;
   }
   return 1;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// Column sums and sums of squares of CSR values, widened to double before
+// the product: s[c] += v, sq[c] += v * v for every entry (the fit's column
+// statistics). The entries are cut into nb contiguous blocks, nb fixed by
+// nnz and p alone (at most 64, partials under ~64 MB); each block adds in
+// CSR order into partials of its own, and the partials are summed per
+// column in block order. So the result is the same bit for bit whatever
+// the thread count, and on integer-valued data (exact in double) it is
+// what one sequential pass gives. n_threads 0 is OpenMP's default.
+void csr_col_stats_f64(const float* data, const int32_t* indices,
+                       int64_t nnz, int64_t p, double* s, double* sq,
+                       int32_t n_threads) {
+  if (p <= 0) return;
+  int64_t nb = std::min<int64_t>(64, std::max<int64_t>(1, nnz / p));
+  nb = std::max<int64_t>(1, std::min<int64_t>(nb, (64LL << 20) / (16 * p)));
+  // each block zeroes its own partials, on the thread that fills them
+  std::unique_ptr<double[]> part(new double[nb * 2 * p]);
+  double* parts = part.get();
+#ifdef _OPENMP
+  const int nt = n_threads > 0 ? n_threads : omp_get_max_threads();
+#else
+  (void)n_threads;
+#endif
+#pragma omp parallel for schedule(static) num_threads(nt)
+  for (int64_t b = 0; b < nb; ++b) {
+    double* ps = parts + b * 2 * p;
+    double* pq = ps + p;
+    std::memset(ps, 0, 2 * p * sizeof(double));
+    const int64_t lo = nnz * b / nb, hi = nnz * (b + 1) / nb;
+    for (int64_t i = lo; i < hi; ++i) {
+      const double v = data[i];
+      ps[indices[i]] += v;
+      pq[indices[i]] += v * v;
+    }
+  }
+  const int64_t CH = 2048;
+#pragma omp parallel for schedule(static) num_threads(nt)
+  for (int64_t c0 = 0; c0 < p; c0 += CH) {
+    const int64_t c1 = std::min(c0 + CH, p);
+    for (int64_t c = c0; c < c1; ++c) s[c] = sq[c] = 0.0;
+    for (int64_t b = 0; b < nb; ++b) {
+      const double* ps = parts + b * 2 * p;
+      const double* pq = ps + p;
+      for (int64_t c = c0; c < c1; ++c) {
+        s[c] += ps[c];
+        sq[c] += pq[c];
+      }
+    }
+  }
 }
 
 }  // extern "C"

@@ -240,7 +240,8 @@ def test_gram_fit_transform_span_tree():
     assert {r["trace"] for r in spans} == {s["sparse.from_scipy"]["id"], fit}
     assert all(r["trace"] == fit for r in spans if r["name"] != "sparse.from_scipy")
     assert s["pca.engine"]["attrs"] == {"requested": "gram", "engine": "gram", "cached": False}
-    assert s["pca.host_col_stats"]["attrs"] == {"cached": False}
+    assert s["pca.host_col_stats"]["attrs"] == {"cached": False, "route": "native"}
+    assert s["pca.host_col_stats"]["counters"] == {"pca.col_stats_native": 1}
     assert s["gram.pass"]["attrs"] == {"tier": "int8"}
     assert s["gram.pass"]["counters"]["gram.slabs"] == 3  # 3,000 rows, 1,024-row slabs
     assert pca._fit_timings.keys() == {"stats"}
@@ -308,7 +309,31 @@ def test_a_refit_hits_the_caches():
     s = {r["name"]: r for r in rec.spans()}
     assert s["pca.engine"]["attrs"] == {"requested": "tiled", "cached": True}
     assert s["pca.host_col_stats"]["attrs"] == {"cached": True}
+    assert "pca.col_stats_native" not in rec.counters()
     assert not any(r["name"].startswith("tiled.build") for r in rec.spans())
+
+
+@pytest.mark.parametrize("route", ["native", "numpy"])
+def test_col_stats_span_names_its_route(route, monkeypatch):
+    if route == "numpy":  # as with no g++: every native route falls back
+        from single_algebra_tpu_torch.native import build as nbuild
+
+        monkeypatch.setenv("SINGLE_ALGEBRA_TPU_NO_NATIVE", "1")
+        monkeypatch.setattr(nbuild, "_tried", False)
+        monkeypatch.setattr(nbuild, "_lib", None)
+    m = SparseMatrix.from_scipy(counts(1200, 90, 8), device="cpu")
+    fit = SparsePCABuilder().n_components(3).engine("sparse").svd_method(
+        SVDMethod.random(10, 2, PIN.QR))
+    with tracing.recording() as rec:
+        fit.build().fit(m)
+    (first,) = [r for r in rec.spans() if r["name"] == "pca.host_col_stats"]
+    assert first["attrs"] == {"cached": False, "route": route}
+    assert rec.counters().get("pca.col_stats_native", 0) == (route == "native")
+    with tracing.recording() as rec:  # a refit of the same matrix hits the cache
+        fit.random_seed(3).build().fit(m)
+    (again,) = [r for r in rec.spans() if r["name"] == "pca.host_col_stats"]
+    assert again["attrs"] == {"cached": True}
+    assert rec.counters().get("pca.col_stats_native", 0) == 0
 
 
 def test_masked_fit_shares_the_spans():
