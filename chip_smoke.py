@@ -16,15 +16,14 @@ Phases, one JSON line each:
 2. ``build``: every kernel library compiled from
    ``single_algebra_tpu_torch/csrc`` (one ``nvcc -Xptxas -v`` per source,
    all started together), with the time and the ptxas report per kernel.
-3. ``kernel``: the densify kernel against its plain PyTorch version AND
-   against the one-warp kernel (the port's first densify kernel, kept as
-   a reference), which must all agree bit for bit: small cases (wt 4, 8,
-   16, 32 and 40, duplicate ids, ids outside the tile, a slab at a
-   non-zero offset that is not a whole number of blocks, col_tile 256 and
-   128), then the Gram path's slab shapes (slab 8192, col_tile 256,
-   30,720 dense rows, wt 8, 16 and 32, plus a slab with duplicate ids)
-   for int8, bf16 and f32 outputs, each timed (CUDA events) beside the
-   one-warp kernel, the plain version and its bound. ``main_path`` fails
+3. ``kernel``: the densify kernel against its plain PyTorch version,
+   which must agree bit for bit: small cases (wt 4, 8, 16, 32 and 40,
+   duplicate ids, ids outside the tile, a slab at a non-zero offset that
+   is not a whole number of blocks, col_tile 256 and 128), then the Gram
+   path's slab shapes (slab 8192, col_tile 256, 30,720 dense rows, wt 8,
+   16 and 32, plus a slab with duplicate ids) for int8, bf16 and f32
+   outputs, each timed (CUDA events) beside the plain version and its
+   bound. ``main_path`` fails
    if the engine has a bucket width that was not held here.
 4. ``gram_tiers``: the int8, bf16 and f32 Gram tiers (blocked path) on the
    card against a float64 host Gram.
@@ -554,8 +553,7 @@ def _densify_payload(torch, gen, ntiles, wt, R, ct, *, dup=False, bad=False, fra
 
 
 def phase_kernel(torch) -> dict:
-    """The densify kernel against its plain version AND against the
-    one-warp kernel (the port's first densify kernel), bit for bit, on
+    """The densify kernel against its plain version, bit for bit, on
     small cases: wt 4, 8, 16, 32 and 40 (past 16 the kernel takes a row 32
     slots at a time), duplicate ids, ids outside the tile, a slab at a
     non-zero offset that is not a whole number of blocks, col_tile 256 and
@@ -565,9 +563,7 @@ def phase_kernel(torch) -> dict:
     compared the same way and timed, each with its bound. -> the headline
     numbers and ``slab_widths``, the widths held at the slab shape."""
 
-    from single_algebra_tpu_torch.ops.densify import (
-        tiled_ell_densify_t, tiled_ell_densify_t_plain, tiled_ell_densify_t_warp,
-    )
+    from single_algebra_tpu_torch.ops.densify import tiled_ell_densify_t, tiled_ell_densify_t_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -579,14 +575,12 @@ def phase_kernel(torch) -> dict:
 
     def compare(case, vals, ids, out_dtype, kw):
         got = tiled_ell_densify_t(vals, ids, out_dtype=out_dtype, **kw)
-        warp = tiled_ell_densify_t_warp(vals, ids, out_dtype=out_dtype, **kw)
         want = tiled_ell_densify_t_plain(vals, ids, out_dtype=out_dtype, **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         line = dict(case=case, out_dtype=str(out_dtype).split(".")[-1], shape=list(got.shape),
-                    equals_plain=same_bits(got, want), equals_warp_kernel=same_bits(got, warp),
-                    warp_kernel_equals_plain=same_bits(warp, want), max_abs_err=err)
-        if not (line["equals_plain"] and line["equals_warp_kernel"]):
+                    equals_plain=same_bits(got, want), max_abs_err=err)
+        if not line["equals_plain"]:
             emit("kernel", **line)
             raise AssertionError(f"densify kernel differs ({case}, {out_dtype}): {line}")
         return line
@@ -622,14 +616,12 @@ def phase_kernel(torch) -> dict:
         for out_dtype in dtypes:
             line = compare(case, vals, ids, out_dtype, kw)
             ms = _time_ms(torch, lambda: tiled_ell_densify_t(vals, ids, out_dtype=out_dtype, **kw), 20)
-            warp_ms = _time_ms(
-                torch, lambda: tiled_ell_densify_t_warp(vals, ids, out_dtype=out_dtype, **kw), 20)
             plain_ms = _time_ms(
                 torch, lambda: tiled_ell_densify_t_plain(vals, ids, out_dtype=out_dtype, **kw), 3)
             item = torch.empty((), dtype=out_dtype).element_size()
             moved = ntiles * ct * slab * item + ntiles * wt * slab * 8
             bd = bound(moved)
-            emit("kernel", wt=wt, ms=ms, warp_kernel_ms=warp_ms, plain_ms=plain_ms,
+            emit("kernel", wt=wt, ms=ms, plain_ms=plain_ms,
                  share_of_bound=bd["bound_ms"] / ms, hbm_gb_per_s=moved / ms / 1e6, **bd, **line)
             worst = max(worst, line["max_abs_err"])
             if case == "slab_wt8" and out_dtype == torch.int8:
@@ -944,12 +936,10 @@ def f64_truth_ev(torch, X, k: int, chunk: int = 4096, device="cuda", uncentered=
 
 def phase_breakdown(torch, eng, pca, k: int) -> None:
     """Where a full pass goes on the card (warm, CUDA events): the densify
-    kernel alone over every slab (and the one-warp kernel over the same
-    slabs), the whole Gram pass (densify + int8/bf16/f32 contraction), the
+    kernel alone over every slab, the whole Gram pass (densify + int8/bf16/f32 contraction), the
     p-space solve and the projection pass."""
 
     from single_algebra_tpu_torch.linalg import gram as g
-    from single_algebra_tpu_torch.ops.densify import tiled_ell_densify_t_warp
 
     slab = g._slab_for(eng.shape[0])
     exact, i8 = eng.meta[3], eng.meta[4]
@@ -969,14 +959,6 @@ def phase_breakdown(torch, eng, pca, k: int) -> None:
         for b, i in slabs:
             eng._densify(b, i, dtype)  # each slab is dropped before the next
 
-    def densify_all_warp_kernel(dtype):
-        # the same slabs through the one-warp kernel (the port's first
-        # densify kernel), for a comparison inside one run
-        for b, i in slabs:
-            tiled_ell_densify_t_warp(
-                eng.bdata[b], eng.blocal[b], wt=eng.bwidths[b][0], ntiles=eng.meta[1],
-                col_tile=eng.meta[2], out_dtype=dtype, row_offset=i * slab, rows=slab)
-
     densify_s, _ = timed(lambda: densify_all(out_dtype))
     gram_s, G = timed(lambda: g.gram_matrix(eng))
     mean = pca._mean_device()
@@ -987,12 +969,9 @@ def phase_breakdown(torch, eng, pca, k: int) -> None:
     Vp[: vt.shape[1]] = vt.T
     project_s, _ = timed(lambda: eng._project_bucketed(Vp))
     project_densify_s, _ = timed(lambda: densify_all(torch.float32))
-    warp_s, _ = timed(lambda: densify_all_warp_kernel(out_dtype))
-    warp_f32_s, _ = timed(lambda: densify_all_warp_kernel(torch.float32))
     emit("breakdown", slabs=len(slabs), densify_gram_dtype_s=densify_s,
          gram_pass_s=gram_s, solve_s=solve_s, projection_pass_s=project_s,
-         densify_f32_s=project_densify_s, densify_gram_dtype_warp_kernel_s=warp_s,
-         densify_f32_warp_kernel_s=warp_f32_s)
+         densify_f32_s=project_densify_s)
 
 
 def device_idle(torch, fn, top: int = 0) -> dict:

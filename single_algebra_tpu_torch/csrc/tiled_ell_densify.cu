@@ -53,22 +53,17 @@
 // 32 KB of shared memory a block leaves room for 6 blocks (48 warps) an
 // SM, each warp with 2*WT loads in flight. Measured on an H100 at the
 // north-star slab: 81-84 % of the byte bound in every output type at wt 8
-// and 16 (the one-warp kernel: 36 %, 62 % and 72 % for int8, bf16 and
-// f32), and 58 %, 62 % and 73 % at wt 32, where the 226-254 registers of
-// the tail leave one block an SM (the one-warp kernel: 29-55 %). Bulk
-// asynchronous stores (cp.async.bulk shared -> global) in place of the
-// vector stores, and blocks of 128 rows, gave the same times within 8 %.
+// and 16, and 58 %, 62 % and 73 % at wt 32, where the 226-254 registers of
+// the tail leave one block an SM. A block of one warp with a float32
+// [ct][32] accumulator in shared memory, one shared-memory add a slot,
+// reached 36 %, 62 % and 72 % (int8, bf16, f32) at wt 8 and 16 and
+// 29-55 % at wt 32. Bulk asynchronous stores (cp.async.bulk shared ->
+// global) in place of the vector stores, and blocks of 128 rows, gave the
+// same times within 8 %.
 //
-// densify_warp_kernel is the first version of this port, kept as the
-// reference the tile kernel is held to bit for bit (its own entry point,
-// tiled_ell_densify_t_warp_f32; nothing of the package's paths launches
-// it). A block is one warp with a float32 [ct][32] accumulator in shared
-// memory; each slot is one shared-memory add, in slot order; the tile is
-// then read back, cast and stored with 4-element vector stores.
-//
-// Both drop ids outside [0, ct), sum duplicate ids in slot order in
-// float32 starting from +0, and saturate float -> int8 with NaN -> 0, so
-// they agree bit for bit with each other and with the one-hot form.
+// It drops ids outside [0, ct), sums duplicate ids in slot order in
+// float32 starting from +0, and saturates float -> int8 with NaN -> 0, so
+// it agrees bit for bit with the one-hot form.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -243,75 +238,6 @@ cudaError_t launch_tile(const float* tdata, const int32_t* tlocal, void* out, lo
                                         stream);
 }
 
-// -- the one-warp kernel: the reference ------------------------------------------------
-
-constexpr int kRows = 32;  // slab rows per block: one warp, one row each
-
-__device__ __forceinline__ void store4(float* dst, float4 v) {
-  *reinterpret_cast<float4*>(dst) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(dst) = u;
-}
-
-__device__ __forceinline__ void store4(int8_t* dst, float4 v) {
-  *reinterpret_cast<char4*>(dst) =
-      make_char4(to_i8(v.x), to_i8(v.y), to_i8(v.z), to_i8(v.w));
-}
-
-template <typename OutT>
-__global__ void __launch_bounds__(kRows)
-    densify_warp_kernel(const float* __restrict__ tdata,
-                        const int32_t* __restrict__ tlocal, OutT* __restrict__ out,
-                        long long ld, long long row_offset, int R, int wt, int ct) {
-  extern __shared__ float4 smem4[];
-  float* acc = reinterpret_cast<float*>(smem4);  // [ct][kRows]
-  const int t = blockIdx.x;
-  const int r0 = blockIdx.y * kRows;
-  const int lane = threadIdx.x;
-  const int n4 = ct * (kRows / 4);
-
-  for (int i = lane; i < n4; i += kRows) smem4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  __syncwarp();
-
-  const long long base = (long long)t * wt * ld + row_offset + r0 + lane;
-  for (int w = 0; w < wt; ++w) {
-    const long long at = base + (long long)w * ld;
-    const float v = tdata[at];
-    const int lid = tlocal[at];
-    if ((unsigned)lid < (unsigned)ct) acc[lid * kRows + lane] += v;
-  }
-  __syncwarp();
-
-  OutT* o = out + (long long)t * ct * R + r0;
-  for (int i = lane; i < n4; i += kRows) {
-    const int c = i / (kRows / 4);
-    const int j = (i % (kRows / 4)) * 4;
-    store4(o + (long long)c * R + j, smem4[i]);
-  }
-}
-
-template <typename OutT>
-cudaError_t launch_warp(const float* tdata, const int32_t* tlocal, void* out,
-                        long long ld, long long row_offset, int R, int wt,
-                        int ntiles, int ct, cudaStream_t stream) {
-  const size_t smem = (size_t)ct * kRows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      densify_warp_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(ntiles, R / kRows);
-  densify_warp_kernel<OutT><<<grid, kRows, smem, stream>>>(
-      tdata, tlocal, static_cast<OutT*>(out), ld, row_offset, R, wt, ct);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // out_kind: 0 = int8, 1 = bf16, 2 = f32. The caller guarantees R % 32 ==
@@ -334,27 +260,6 @@ extern "C" int tiled_ell_densify_t_f32(const void* tdata, const void* tlocal,
       return launch_tile<__nv_bfloat16>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     case 2:
       return launch_tile<float>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-// The one-warp reference kernel: any wt, 1 <= ct <= 1024, R / 32 <= 65535.
-extern "C" int tiled_ell_densify_t_warp_f32(const void* tdata, const void* tlocal,
-                                            void* out, long long ld,
-                                            long long row_offset, int R, int wt,
-                                            int ntiles, int ct, int out_kind,
-                                            void* stream) {
-  const float* td = static_cast<const float*>(tdata);
-  const int32_t* tl = static_cast<const int32_t*>(tlocal);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (out_kind) {
-    case 0:
-      return launch_warp<int8_t>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
-    case 1:
-      return launch_warp<__nv_bfloat16>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
-    case 2:
-      return launch_warp<float>(td, tl, out, ld, row_offset, R, wt, ntiles, ct, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

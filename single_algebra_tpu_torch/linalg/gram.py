@@ -192,6 +192,8 @@ class GramPCAEngine:
     meta: Tuple[int, int, int, bool, bool]
     bwidths: Tuple[Tuple[int, int], ...]
     device: torch.device
+    _gram: torch.Tensor | None = dataclasses.field(default=None, init=False, repr=False,
+                                                   compare=False)  # gram_cached's
 
     COL_TILES = (256, 512, 1024)
 
@@ -204,21 +206,18 @@ class GramPCAEngine:
         the payload, G, two slab workspaces and the blocked path's buffers
         exactly as the JAX package does, so both packages take the same
         decisions (the port's in-place blocked path needs less than the
-        charged pair carries). Cached per (matrix, col_tile)."""
+        charged pair carries). Kept on the matrix per ``col_tile``."""
 
-        cache = getattr(m, "_gram_plan_cache", None)
-        if cache is None:
-            cache = m._gram_plan_cache = {}
-        if col_tile in cache:
-            return cache[col_tile]
+        return m._memo(("gram_plan", col_tile), lambda: cls._plan(m, col_tile))
 
+    @staticmethod
+    def _plan(m, col_tile: int):
         from ..sparse.convert import round_up, row_tile_widths
 
-        src = m._layout_for("row")
-        src._require_host_structure()
+        indptr, indices, _ = m._row_csr(values=False)
         n, p = m.shape
         slab = _slab_for(n)
-        w_r = row_tile_widths(src._h_indptr, src._h_indices, n, col_tile)
+        w_r = row_tile_widths(indptr, indices, n, col_tile)
         classes = width_classes_np(np.maximum(w_r, 1))
         ntiles = max(-(-p // col_tile), 1)
         pp = ntiles * col_tile
@@ -242,8 +241,7 @@ class GramPCAEngine:
             total += nb * (nb + 1) // 2 * rb * rb * 4
             if pp % rb:
                 total += ppb * ppb * 4
-        cache[col_tile] = (plan, total, slab, ntiles)
-        return cache[col_tile]
+        return plan, total, slab, ntiles
 
     @staticmethod
     def hbm_budget_bytes(device: torch.device | str) -> int:
@@ -295,10 +293,7 @@ class GramPCAEngine:
         n, p = m.shape
         ct, _ = cls.choose_col_tile(m)
         plan, _, slab, nt = cls._bucket_plan(m, ct)
-        src = m._layout_for("row")
-        src._require_host_structure()
-        indptr, indices = src._h_indptr, src._h_indices
-        vals = src._csr_data_host()
+        indptr, indices, vals = m._row_csr()
 
         bdata, blocal, bwidths = [], [], []
         pos = np.zeros(n, np.int64)
@@ -457,11 +452,9 @@ class GramPCAEngine:
     # -- cached Gram -------------------------------------------------------
 
     def gram_cached(self) -> torch.Tensor:
-        g = getattr(self, "_gram_cache", None)
-        if g is None:
-            g = gram_matrix(self)
-            self._gram_cache = g
-        return g
+        if self._gram is None:
+            self._gram = gram_matrix(self)
+        return self._gram
 
 
 def _gram_block(pp: int) -> int | None:

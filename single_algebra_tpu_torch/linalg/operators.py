@@ -433,22 +433,19 @@ class DensifiedOperator:
 
         from ..native import build as _native
 
-        src = m._layout_for("row")
-        src._require_host_structure()
+        indptr, indices, data = m._row_csr()
         n, p = m.shape
-        vals = np.ascontiguousarray(src._csr_data_host(), np.float32)
+        vals = np.ascontiguousarray(data, np.float32)
         exact = m.values_bf16_exact()
-        nat = _native.csr_densify_bf16(
-            src._h_indptr, src._h_indices, vals, n, p, need_lo=not exact
-        )
+        nat = _native.csr_densify_bf16(indptr, indices, vals, n, p, need_lo=not exact)
         if nat is not None:
             hi_u16, lo_u16, _ = nat
             return _bf16_from_bits(hi_u16), (
                 None if exact else _bf16_from_bits(lo_u16)
             )
         return _scatter_bf16(
-            torch.from_numpy(src._h_indptr), torch.from_numpy(src._h_indices),
-            torch.from_numpy(vals), n, p, DensifiedOperator._BLOCK_BYTES,
+            torch.from_numpy(indptr), torch.from_numpy(indices), torch.from_numpy(vals),
+            n, p, DensifiedOperator._BLOCK_BYTES,
         )
 
     @classmethod
@@ -466,10 +463,8 @@ class DensifiedOperator:
         t0 = time.perf_counter()
         with span("dense.build", route="device" if device else "host"):
             if device:
-                src = m._layout_for("row")
-                src._require_host_structure()
-                arrays = (src._h_indptr, src._h_indices,
-                          np.ascontiguousarray(src._csr_data_host(), np.float32))
+                indptr, indices, data = m._row_csr()
+                arrays = (indptr, indices, np.ascontiguousarray(data, np.float32))
                 count("dense.upload_bytes", sum(a.nbytes for a in arrays))
                 indptr, indices, vals = (torch.from_numpy(a).to(m.device) for a in arrays)
                 _sync(m.device)
@@ -726,11 +721,8 @@ class TiledSparseOperator:
 
         ct, br = cls.COL_TILE, cls.BLOCK_ROWS
         n, p = m.shape
-        src = m._layout_for("row")
-        src._require_host_structure()
         td, tl, wt, nt, ovd, ovi, ovw = cv.csr_to_tiled_ell_split_numpy(
-            src._h_indptr, src._h_indices, src._csr_data_host(), n, p,
-            col_tile=ct, rows_padded_to=br,
+            *m._row_csr(), n, p, col_tile=ct, rows_padded_to=br,
         )
         # transposed overflow (column-major plain ELL over just the overflow
         # entries) so rmv needs no scatter; padding slots carry v=0
@@ -798,46 +790,35 @@ class TiledSparseOperator:
     def payload_bytes(cls, m) -> int:
         """Device-payload size of the tiled layout for ``m``, charged as the
         JAX package charges it (f32 values + int32 ids, 8 bytes a slot; two
-        O(nnz) host passes over the structure), so both packages price the
-        payload alike. :meth:`fits` adds :meth:`form_bytes`."""
+        O(nnz) host passes over the structure, kept on the matrix), so both
+        packages price the payload alike. :meth:`fits` adds
+        :meth:`form_bytes`."""
 
         from ..sparse import convert as cv
 
-        src = m._layout_for("row")
-        src._require_host_structure()
         n, p = m.shape
-        wt, ntiles, ovw, _ = cv.tiled_split_widths(
-            src._h_indptr, src._h_indices, n, p, col_tile=cls.COL_TILE
-        )
+        wt, ntiles, ovw, _ = m._tiled_widths(cls.COL_TILE)
         rp = cls._rows(n)
         main = ntiles * wt * rp * 8
         over = rp * ovw * 8
         if ovw:
             # the rmv-side transposed overflow has its own width (the max
             # per-column overflow count)
-            ovtw = cv.tiled_overflow_col_width(
-                src._h_indptr, src._h_indices, n, p, cls.COL_TILE, wt
-            )
+            ovtw = m._tiled_overflow_col_width(cls.COL_TILE)
             over += cv.pad_rows(p) * cv.round_up(max(ovtw, 1), 8) * 8
         return main + over
 
     @classmethod
     def form_bytes(cls, m) -> int:
         """Device bytes of the rmv forms the operator keeps for ``m`` past
-        :meth:`payload_bytes` (:func:`form_charge`; one O(nnz) host pass);
-        0 off CUDA, where no form is kept."""
-
-        from ..sparse import convert as cv
+        :meth:`payload_bytes` (:func:`form_charge`, from the widths that
+        :meth:`payload_bytes` keeps on the matrix); 0 off CUDA, where no
+        form is kept."""
 
         if m.device.type != "cuda":
             return 0
-        src = m._layout_for("row")
-        src._require_host_structure()
-        n, p = m.shape
-        wt, ntiles, _, _ = cv.tiled_split_widths(
-            src._h_indptr, src._h_indices, n, p, col_tile=cls.COL_TILE
-        )
-        return form_charge(m, wt, ntiles, cls._rows(n))
+        wt, ntiles, _, _ = m._tiled_widths(cls.COL_TILE)
+        return form_charge(m, wt, ntiles, cls._rows(m.shape[0]))
 
     @classmethod
     def _rows(cls, n: int) -> int:

@@ -26,7 +26,7 @@ import dataclasses
 import os
 import time
 import warnings
-from typing import Optional
+from typing import Optional, Self
 
 import numpy as np
 import torch
@@ -37,14 +37,14 @@ from ..linalg.lanczos import lanczos_svd
 from ..linalg.operators import (
     CenteredOperator,
     DensifiedOperator,
+    MaskedOperator,
     SparseOperator,
     TiledSparseOperator,
 )
 from ..linalg.svd import randomized_svd, svd_flip
-from ..native.build import csr_col_stats
 from ..sparse.matrix import SparseMatrix
 from ..types import SVDMethod, precision_policy
-from ..utils.tracing import count, span
+from ..utils.tracing import span
 
 __all__ = ["SparsePCA", "SparsePCABuilder", "make_engine_operator"]
 
@@ -59,30 +59,11 @@ def _as_matrix(x, device="cuda") -> SparseMatrix:
 
 
 def _host_col_stats(m: SparseMatrix):
-    """(sum_col, sum_col_squared) per column, float64 numpy, from the host
-    CSR arrays; cached on the matrix. float32 values take one threaded
-    native pass (``native.build.csr_col_stats``), others, or no native
-    library, numpy's two ``bincount``s; the span's ``route`` says which."""
+    """(sum_col, sum_col_squared) per column, float64 numpy: the matrix's
+    kept host statistics (``SparseMatrix._host_col_stats``). The fit looks
+    this name up at each call."""
 
-    cached = getattr(m, "_host_col_stats_cache", None)
-    with span("pca.host_col_stats", cached=cached is not None) as current:
-        if cached is not None:
-            return cached
-        src = m._layout_for("row")
-        data = src._csr_data_host()
-        idx = src._h_indices
-        p = m.ncols
-        stats = csr_col_stats(data, idx, p)
-        if stats is not None:
-            current.set(route="native")
-            count("pca.col_stats_native")
-        else:
-            current.set(route="numpy")
-            data = data.astype(np.float64)
-            stats = (np.bincount(idx, weights=data, minlength=p)[:p],
-                     np.bincount(idx, weights=data * data, minlength=p)[:p])
-        m._host_col_stats_cache = stats
-        return stats
+    return m._host_col_stats()
 
 
 def _needs_lo(m: SparseMatrix) -> bool:
@@ -215,13 +196,40 @@ def _warn_gram_ignores_lanczos_knobs(model) -> None:
 
 
 class _LazyPCAState:
-    """Model state: ``components_`` stays a device tensor (it feeds
-    ``transform``); ``mean_`` and ``explained_variance_`` are host numpy.
-    The singular values are pulled to the host (the sync point) only when
+    """The PCA model both ``SparsePCA`` and ``MaskedSparsePCA`` are: the
+    constructor's fields, the one fit core (:meth:`_fit`), the model
+    state, the analysis methods and ``save``/``load``.
+
+    ``components_`` stays a device tensor (it feeds ``transform``);
+    ``mean_`` and ``explained_variance_`` are host numpy. The singular
+    values are pulled to the host (the sync point) only when
     ``explained_variance_`` / ``total_variance_`` / ``noise_variance_`` is
     first read, so ``fit`` returns with the device work still queued."""
 
-    def _init_lazy_state(self) -> None:
+    def __init__(
+        self,
+        n_components: int = 50,
+        alpha: float = 1.0,
+        tolerance: float = 1e-6,
+        random_seed: int = 42,
+        center: bool = True,
+        verbose: bool = False,
+        svd_method: SVDMethod = SVDMethod.lanczos(),
+        engine: str = "auto",
+        lanczos_steps: int | None = None,
+        lanczos_block: int | None = None,
+    ):
+        self.lanczos_steps = lanczos_steps
+        self.lanczos_block = lanczos_block
+        self.n_components = n_components
+        self.engine = engine
+        self.alpha = alpha  # parity field; unused, as in the reference
+        self.tolerance = tolerance
+        self.random_seed = random_seed
+        self.center = center
+        self.verbose = verbose
+        self.svd_method = svd_method
+        self.lanczos_steps_taken_: int | None = None  # (block) steps of the last Lanczos fit
         self.components_: Optional[torch.Tensor] = None
         self._mean_np: Optional[np.ndarray] = None
         self._mean_dev: Optional[torch.Tensor] = None
@@ -231,6 +239,94 @@ class _LazyPCAState:
         self._noise_var: Optional[float] = None
         self._fit_n_samples: Optional[int] = None
         self._fit_min_dim: Optional[int] = None
+
+    # -- fitting -------------------------------------------------------
+
+    @precision_policy()
+    def fit(self, x):
+        with span("pca.fit", model=type(self).__name__):
+            return self._fit(_as_matrix(x))
+
+    def _fit(self, m: SparseMatrix, idx: np.ndarray | None = None):
+        """The fit over the columns ``idx`` of ``m`` (all when None).
+        ``mean_`` is FULL width (p), over all columns; the total variance
+        is summed over ``idx``. On the Gram engine a mask takes the
+        submatrix of the cached full Gram; on the others the operator's
+        masked view (``MaskedOperator``)."""
+
+        n_samples, n_cols = m.shape
+        n_features = n_cols if idx is None else len(idx)
+        k = self.n_components
+        t0 = time.perf_counter()
+
+        op = make_engine_operator(m, self.engine)
+        t1 = time.perf_counter()
+
+        col_sums, col_sq = _host_col_stats(m)
+        dt = np.float32 if m.dtype == torch.float32 else np.float64
+        if self.center:
+            mean_np = (col_sums / n_samples).astype(dt)
+        else:
+            mean_np = np.zeros(n_cols, dt)
+        self.mean_ = mean_np
+        self._mean_dev = torch.as_tensor(mean_np, device=m.device)
+
+        total_var = None
+        if self.center and n_samples > 1:
+            mean64 = col_sums / n_samples
+            var = (col_sq - mean64 * col_sums) / (n_samples - 1)
+            total_var = float((var if idx is None else var[idx]).sum())
+        t_stats = time.perf_counter() - t1
+
+        idx_dev = None if idx is None else torch.from_numpy(idx).to(m.device)
+        sm = self.svd_method
+        want_t = getattr(self, "_want_transform", False)
+        if isinstance(op, GramPCAEngine):
+            # the Lanczos method maps to the uncentered exact solve, the
+            # randomized one to the centered
+            _warn_gram_ignores_lanczos_knobs(self)
+            s_dev, vt, T = gram_pca_graph(
+                op, op.gram_cached(), self._mean_dev, self.random_seed, k=k,
+                center_svd=self.center and sm.is_random, center_T=self.center,
+                want_transform=want_t, mask_idx=idx_dev,
+                solver_oversamples=sm.n_oversamples if sm.is_random else 10,
+                solver_iters=sm.n_power_iterations if sm.is_random else 6,
+            )
+        else:
+            fit_op, mean = op, self._mean_dev
+            if idx_dev is not None:
+                fit_op, mean = MaskedOperator(op, idx_dev), mean[idx_dev]
+            info = {}
+            s_dev, vt, T = _fit_graph(
+                fit_op, mean, self.random_seed, k=k, method=sm,
+                center=self.center, steps=self.lanczos_steps,
+                want_transform=want_t, tol=self.tolerance,
+                lanczos_block=self.lanczos_block, info=info,
+            )
+            self.lanczos_steps_taken_ = info.get("steps")
+        self._fitted_transform = T
+        # host seconds of the column statistics; the engine build and the
+        # solve are the spans "pca.engine" and "gram.solve" / "svd.randomized"
+        self._fit_timings = dict(stats=t_stats)
+        self.components_ = vt  # k x n_features
+        self._set_fit_state(s_dev, total_var, n_samples, min(n_samples, n_features))
+        if self.verbose:
+            self._print_fit(op, n_samples, n_cols, n_features, t0)
+        return self
+
+    @precision_policy()
+    def fit_transform(self, x) -> torch.Tensor:
+        m = _as_matrix(x)  # convert once; fit and transform share layouts
+        self._want_transform = True
+        try:
+            self.fit(m)
+        finally:
+            self._want_transform = False
+        T = self._fitted_transform
+        self._fitted_transform = None
+        return T
+
+    # -- model state -----------------------------------------------------
 
     def _set_fit_state(self, s_dev, total_var, n_samples, min_dim) -> None:
         self._s_dev = s_dev
@@ -307,6 +403,71 @@ class _LazyPCAState:
             )
         return self._mean_dev
 
+    # -- analysis ------------------------------------------------------
+
+    def feature_importances(self) -> torch.Tensor:
+        self._check_fitted()
+        return self.components_**2
+
+    def explained_variance_ratio(self) -> torch.Tensor:
+        self._check_fitted()
+        ev = np.asarray(self.explained_variance_, dtype=np.float64)
+        return torch.from_numpy(ev / ev.sum())
+
+    def cumulative_explained_variance_ratio(self) -> torch.Tensor:
+        return torch.cumsum(self.explained_variance_ratio(), dim=0)
+
+    def _check_fitted(self):
+        if self.components_ is None:
+            raise RuntimeError("Must be fitted before transform!")
+
+    # -- persistence: the JAX package's .npz format -----------------------
+
+    def save(self, path: str) -> None:
+        np.savez(
+            path,
+            components=self.components_.cpu().numpy(),
+            explained_variance=np.asarray(self.explained_variance_),
+            mean=np.asarray(self.mean_),
+            meta=np.array(
+                [
+                    self.n_components,
+                    int(self.center),
+                    self.random_seed,
+                    self.total_variance_ or 0.0,
+                    self.noise_variance_ or 0.0,
+                ],
+                dtype=np.float64,
+            ),
+            **self._saved_extra(),
+        )
+
+    def _saved_extra(self) -> dict:
+        """Arrays a subclass saves beside the common ones."""
+
+        return {}
+
+    @classmethod
+    def load(cls, path: str, device="cuda"):
+        if not os.path.exists(path) and os.path.exists(path + ".npz"):
+            path += ".npz"  # np.savez appends the suffix; np.load does not
+        with np.load(path) as z:
+            meta = z["meta"]
+            obj = cls._loaded(z, n_components=int(meta[0]), center=bool(meta[1]),
+                              random_seed=int(meta[2]))
+            obj.components_ = torch.as_tensor(np.array(z["components"]), device=device)
+            obj.explained_variance_ = np.array(z["explained_variance"])
+            obj.mean_ = np.array(z["mean"])
+            obj.total_variance_ = float(meta[3])
+            obj.noise_variance_ = float(meta[4])
+        return obj
+
+    @classmethod
+    def _loaded(cls, z, **kw):
+        """The unfitted model that ``load`` fills from the open ``.npz``."""
+
+        return cls(**kw)
+
 
 def _np_dtype(dtype: torch.dtype):
     return {torch.float32: np.float32, torch.float64: np.float64}[dtype]
@@ -319,114 +480,21 @@ class SparsePCA(_LazyPCAState):
     ``explained_variance_`` (k), ``mean_`` (p).
     """
 
-    def __init__(
-        self,
-        n_components: int = 50,
-        alpha: float = 1.0,
-        tolerance: float = 1e-6,
-        random_seed: int = 42,
-        center: bool = True,
-        verbose: bool = False,
-        svd_method: SVDMethod = SVDMethod.lanczos(),
-        engine: str = "auto",
-        lanczos_steps: int | None = None,
-        lanczos_block: int | None = None,
-    ):
-        self.lanczos_steps = lanczos_steps
-        self.lanczos_block = lanczos_block
-        self.n_components = n_components
-        self.engine = engine
-        self.alpha = alpha  # parity field; unused, as in the reference
-        self.tolerance = tolerance
-        self.random_seed = random_seed
-        self.center = center
-        self.verbose = verbose
-        self.svd_method = svd_method
-        self.lanczos_steps_taken_: int | None = None  # (block) steps of the last Lanczos fit
-        self._init_lazy_state()
-
-    # -- fitting -------------------------------------------------------
-
-    @precision_policy()
-    def fit(self, x) -> "SparsePCA":
-        with span("pca.fit", model=type(self).__name__):
-            return self._fit(x)
-
-    def _fit(self, x) -> "SparsePCA":
-        m = _as_matrix(x)
-        n_samples, n_features = m.shape
-        k = self.n_components
-        t0 = time.perf_counter()
-
-        op = make_engine_operator(m, self.engine)
-        t1 = time.perf_counter()
-
-        col_sums, col_sq = _host_col_stats(m)
-        dt = np.float32 if m.dtype == torch.float32 else np.float64
-        if self.center:
-            mean_np = (col_sums / n_samples).astype(dt)
-        else:
-            mean_np = np.zeros(n_features, dt)
-        self.mean_ = mean_np
-        self._mean_dev = torch.as_tensor(mean_np, device=m.device)
-
-        total_var = None
-        if self.center and n_samples > 1:
-            mean64 = col_sums / n_samples
-            total_var = float(
-                np.sum((col_sq - mean64 * col_sums) / (n_samples - 1))
+    def _print_fit(self, op, n_samples, n_features, n_fit, t0) -> None:
+        sm, k = self.svd_method, self.n_components
+        if isinstance(op, GramPCAEngine) and op.p_padded > EIGH_MAX_PP and sm.is_random:
+            os_floor = min(k + 14, max(op.p_padded - k, 0))
+            print(
+                "Large-Gram randomized solve: oversamples/power-iterations "
+                f"are treated as minimums (oversamples >= {os_floor}, q >= 8; "
+                f"requested {sm.n_oversamples}/{sm.n_power_iterations})"
             )
-        t_stats = time.perf_counter() - t1
-
-        sm = self.svd_method
-        want_t = getattr(self, "_want_transform", False)
-        if isinstance(op, GramPCAEngine):
-            # the Lanczos method maps to the uncentered exact solve, the
-            # randomized one to the centered
-            _warn_gram_ignores_lanczos_knobs(self)
-            if self.verbose and op.p_padded > EIGH_MAX_PP and sm.is_random:
-                os_floor = min(k + 14, max(op.p_padded - k, 0))
-                print(
-                    "Large-Gram randomized solve: oversamples/power-iterations "
-                    f"are treated as minimums (oversamples >= {os_floor}, q >= 8; "
-                    f"requested {sm.n_oversamples}/{sm.n_power_iterations})"
-                )
-            s_dev, vt, T = gram_pca_graph(
-                op,
-                op.gram_cached(),
-                self._mean_dev,
-                self.random_seed,
-                k=k,
-                center_svd=self.center and sm.is_random,
-                center_T=self.center,
-                want_transform=want_t,
-                solver_oversamples=sm.n_oversamples if sm.is_random else 10,
-                solver_iters=sm.n_power_iterations if sm.is_random else 6,
-            )
-        else:
-            info = {}
-            s_dev, vt, T = _fit_graph(
-                op, self._mean_dev, self.random_seed, k=k, method=sm,
-                center=self.center, steps=self.lanczos_steps,
-                want_transform=want_t, tol=self.tolerance,
-                lanczos_block=self.lanczos_block, info=info,
-            )
-            self.lanczos_steps_taken_ = info.get("steps")
-        self._fitted_transform = T
-        # host seconds of the column statistics; the engine build and the
-        # solve are the spans "pca.engine" and "gram.solve" / "svd.randomized"
-        self._fit_timings = dict(stats=t_stats)
-        self.components_ = vt
-        self._set_fit_state(s_dev, total_var, n_samples, min(n_samples, n_features))
-
-        if self.verbose:
-            name = "randomized" if sm.is_random else "Lanczos"
-            print(f"SVD using {name} algorithm ({type(op).__name__}):")
-            print(f"  Input shape: {n_samples} samples x {n_features} features")
-            print(f"  Reduced to: {k} components")
-            print(f"  Estimated noise variance: {self.noise_variance_}")
-            print(f"  Fit took {time.perf_counter() - t0:.3f}s")
-        return self
+        name = "randomized" if sm.is_random else "Lanczos"
+        print(f"SVD using {name} algorithm ({type(op).__name__}):")
+        print(f"  Input shape: {n_samples} samples x {n_features} features")
+        print(f"  Reduced to: {k} components")
+        print(f"  Estimated noise variance: {self.noise_variance_}")
+        print(f"  Fit took {time.perf_counter() - t0:.3f}s")
 
     # -- inference -----------------------------------------------------
 
@@ -449,18 +517,6 @@ class SparsePCA(_LazyPCAState):
         return _project(op, self.components_.T)
 
     @precision_policy()
-    def fit_transform(self, x) -> torch.Tensor:
-        m = _as_matrix(x)
-        self._want_transform = True
-        try:
-            self.fit(m)
-        finally:
-            self._want_transform = False
-        T = self._fitted_transform
-        self._fitted_transform = None
-        return T
-
-    @precision_policy()
     def inverse_transform(self, T) -> torch.Tensor:
         """``T @ components_`` (+ ``mean_`` when centered)."""
 
@@ -471,25 +527,7 @@ class SparsePCA(_LazyPCAState):
             R = R + self._mean_device()
         return R
 
-    # -- analysis ------------------------------------------------------
-
-    def feature_importances(self) -> torch.Tensor:
-        self._check_fitted()
-        return self.components_**2
-
-    def explained_variance_ratio(self) -> torch.Tensor:
-        self._check_fitted()
-        ev = np.asarray(self.explained_variance_, dtype=np.float64)
-        return torch.from_numpy(ev / ev.sum())
-
-    def cumulative_explained_variance_ratio(self) -> torch.Tensor:
-        return torch.cumsum(self.explained_variance_ratio(), dim=0)
-
-    def _check_fitted(self):
-        if self.components_ is None:
-            raise RuntimeError("Must be fitted before transform!")
-
-    # -- state and persistence -------------------------------------------
+    # -- state -----------------------------------------------------------
 
     @classmethod
     def from_state(
@@ -509,49 +547,11 @@ class SparsePCA(_LazyPCAState):
         obj.noise_variance_ = float(state["noise_variance"])
         return obj
 
-    def save(self, path: str) -> None:
-        np.savez(
-            path,
-            components=self.components_.cpu().numpy(),
-            explained_variance=np.asarray(self.explained_variance_),
-            mean=np.asarray(self.mean_),
-            meta=np.array(
-                [
-                    self.n_components,
-                    int(self.center),
-                    self.random_seed,
-                    self.total_variance_ or 0.0,
-                    self.noise_variance_ or 0.0,
-                ],
-                dtype=np.float64,
-            ),
-        )
-
-    @classmethod
-    def load(cls, path: str, device="cuda") -> "SparsePCA":
-        if not os.path.exists(path) and os.path.exists(path + ".npz"):
-            path += ".npz"  # np.savez appends the suffix; np.load does not
-        with np.load(path) as z:
-            meta = z["meta"]
-            obj = cls.from_state(
-                {
-                    "components": z["components"],
-                    "explained_variance": z["explained_variance"],
-                    "mean": z["mean"],
-                    "total_variance": meta[3],
-                    "noise_variance": meta[4],
-                },
-                center=bool(meta[1]),
-                random_seed=int(meta[2]),
-                device=device,
-            )
-        obj.n_components = int(meta[0])
-        return obj
-
 
 @dataclasses.dataclass
-class SparsePCABuilder:
-    """Fluent builder with the reference's defaults."""
+class _PCABuilder:
+    """The fluent setters both PCA builders share, with the reference's
+    defaults."""
 
     _n_components: int = 50
     _alpha: float = 1.0
@@ -564,58 +564,57 @@ class SparsePCABuilder:
     _lanczos_steps: int | None = None
     _lanczos_block: int | None = None
 
-    def lanczos_block(self, b: int | None) -> "SparsePCABuilder":
+    def lanczos_block(self, b: int | None) -> Self:
         self._lanczos_block = b
         return self
 
-    def lanczos_steps(self, n: int) -> "SparsePCABuilder":
+    def lanczos_steps(self, n: int) -> Self:
         self._lanczos_steps = n
         return self
 
-    def engine(self, e: str) -> "SparsePCABuilder":
+    def engine(self, e: str) -> Self:
         """Compute engine: 'auto', 'dense', 'gram', 'tiled' or 'sparse'."""
 
         self._engine = e
         return self
 
-    def n_components(self, n: int) -> "SparsePCABuilder":
+    def n_components(self, n: int) -> Self:
         self._n_components = n
         return self
 
-    def alpha(self, a: float) -> "SparsePCABuilder":
+    def alpha(self, a: float) -> Self:
         self._alpha = a
         return self
 
-    def tolerance(self, t: float) -> "SparsePCABuilder":
+    def tolerance(self, t: float) -> Self:
         self._tolerance = t
         return self
 
-    def random_seed(self, s: int) -> "SparsePCABuilder":
+    def random_seed(self, s: int) -> Self:
         self._random_seed = s
         return self
 
-    def center(self, c: bool) -> "SparsePCABuilder":
+    def center(self, c: bool) -> Self:
         self._center = c
         return self
 
-    def verbose(self, v: bool) -> "SparsePCABuilder":
+    def verbose(self, v: bool) -> Self:
         self._verbose = v
         return self
 
-    def svd_method(self, m: SVDMethod) -> "SparsePCABuilder":
+    def svd_method(self, m: SVDMethod) -> Self:
         self._svd_method = m
         return self
 
+    def _params(self) -> dict:
+        """The ten shared constructor arguments."""
+
+        return {f.name[1:]: getattr(self, f.name) for f in dataclasses.fields(_PCABuilder)}
+
+
+@dataclasses.dataclass
+class SparsePCABuilder(_PCABuilder):
+    """Fluent builder with the reference's defaults."""
+
     def build(self) -> SparsePCA:
-        return SparsePCA(
-            n_components=self._n_components,
-            alpha=self._alpha,
-            tolerance=self._tolerance,
-            random_seed=self._random_seed,
-            center=self._center,
-            verbose=self._verbose,
-            svd_method=self._svd_method,
-            engine=self._engine,
-            lanczos_steps=self._lanczos_steps,
-            lanczos_block=self._lanczos_block,
-        )
+        return SparsePCA(**self._params())

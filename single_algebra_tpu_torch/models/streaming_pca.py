@@ -314,7 +314,7 @@ class StreamingSparsePCA:
         # stores the uploaded slab payloads under the key, and a later
         # partial_fit with the same key skips the host build and the
         # upload. The caller promises key -> content stability.
-        self._payload_cache = payload_cache
+        self._payloads = payload_cache
         # the randomized solve's sketch (pp > EIGH_MAX_PP) when not None:
         # the parity tests set it to the JAX package's
         self._omega: Optional[torch.Tensor] = None
@@ -470,7 +470,7 @@ class StreamingSparsePCA:
         unchanged chunks skip the host build and the upload."""
 
         self._invalidate_solve()
-        cache = self._payload_cache
+        cache = self._payloads
         ck = ("mesh" if self.mesh is not None else "1dev", key, self.ct)
         if cache is not None and key is not None and ck in cache:
             for entry in cache[ck]:

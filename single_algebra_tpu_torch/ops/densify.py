@@ -1,4 +1,4 @@
-"""``tiled_ell_densify_t``: the Gram engine's densify kernel and its twin.
+"""``tiled_ell_densify_t``: the Gram engine's densify kernel.
 
 Counterpart of the Pallas kernel ``tiled_ell_densify_t`` in
 ``single_algebra_tpu/ops/pallas/spmm_kernel.py``.
@@ -20,19 +20,16 @@ copy of its payload.
 hand-written Hopper kernel of ``csrc/tiled_ell_densify.cu`` (built with
 ``nvcc`` for ``sm_90a`` on first use, bound with ctypes) or raises; on
 CPU tensors it runs :func:`tiled_ell_densify_t_plain`, the one-hot
-select-add of the TPU kernel in plain PyTorch. All give bit-identical
+select-add of the TPU kernel in plain PyTorch. Both give bit-identical
 results. The kernel (the tile kernel of the source's note) forms each
 id's sum in registers, stages the tile in the output type and writes it
 with 16-byte vector stores; rows wider than 16 slots are taken 16 slots
-at a time by the same kernel. :func:`tiled_ell_densify_t_warp` launches
-the port's first densify kernel (one warp a block, a float32 accumulator
-tile in shared memory): no path of the package calls it, it is the
-reference the kernel is held to on the card. The kernels take float32
-payloads only: the Gram engine's host build always produces float32
-payloads, and a float64 payload is refused rather than silently
-narrowed. The plain version also takes float64 (the tiled engine's
-float64 payloads on the CPU). The nvcc build, the ctypes loading and the
-launch counts are shared with the other kernels (``ops/cuda_lib.py``).
+at a time by the same kernel. The kernel takes float32 payloads only:
+the Gram engine's host build always produces float32 payloads, and a
+float64 payload is refused rather than silently narrowed. The plain
+version also takes float64 (the tiled engine's float64 payloads on the
+CPU). The nvcc build, the ctypes loading and the launch counts are
+shared with the other kernels (``ops/cuda_lib.py``).
 """
 
 from __future__ import annotations
@@ -47,25 +44,24 @@ from .cuda_lib import densify_launches_by_dtype, launch_counts, reset_launch_cou
 __all__ = [
     "tiled_ell_densify_t",
     "tiled_ell_densify_t_plain",
-    "tiled_ell_densify_t_warp",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 _OUT_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
 _ROW_MULTIPLE = 32  # slab rows come in whole warps
-MAX_COL_TILE = 1024  # the reference kernel's [col_tile, 32] f32 accumulator = 128 KB
+MAX_COL_TILE = 1024  # the widest tile the Gram engine plans (GramPCAEngine.COL_TILES)
 
 
 def _bind(lib) -> None:
-    for fn in (lib.tiled_ell_densify_t_f32, lib.tiled_ell_densify_t_warp_f32):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
+    fn = lib.tiled_ell_densify_t_f32
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
 
 
 def _check(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows):
@@ -157,48 +153,16 @@ def tiled_ell_densify_t(
             tdata, tlocal, wt=wt, ntiles=ntiles, col_tile=col_tile,
             out_dtype=out_dtype, row_offset=row_offset, rows=rows,
         )
-    out = _launch("tiled_ell_densify_t_f32", tdata, tlocal, wt, ntiles, col_tile,
-                  out_dtype, row_offset, rows)
-    if out.numel():
-        launch_counts["tiled_ell_densify_t"] += 1
-        name = str(out_dtype).split(".")[-1]
-        densify_launches_by_dtype[name] = densify_launches_by_dtype.get(name, 0) + 1
-    return out
-
-
-def tiled_ell_densify_t_warp(
-    tdata: torch.Tensor,
-    tlocal: torch.Tensor,
-    *,
-    wt: int,
-    ntiles: int,
-    col_tile: int = 256,
-    out_dtype: torch.dtype = torch.bfloat16,
-    row_offset: int = 0,
-    rows: int | None = None,
-) -> torch.Tensor:
-    """The same function through the port's first densify kernel (CUDA
-    tensors only): the reference :func:`tiled_ell_densify_t` is held to.
-    Its launches are not counted."""
-
-    return _launch("tiled_ell_densify_t_warp_f32", tdata, tlocal, wt, ntiles,
-                   col_tile, out_dtype, row_offset, rows)
-
-
-def _launch(entry, tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows):
-    """Check the arguments and launch the library's kernel ``entry`` on the
-    tensors' card."""
-
     if tdata.device.type != "cuda":
-        raise ValueError(f"the densify kernels run on CUDA tensors, got {tdata.device}")
+        raise ValueError(f"the densify kernel runs on CUDA tensors, got {tdata.device}")
     rows = _check(tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, rows)
     if tdata.dtype != torch.float32 or out_dtype not in _OUT_KIND:
         raise TypeError(
-            f"the CUDA densify kernels take float32 payloads and int8, bf16 or "
+            f"the CUDA densify kernel takes float32 payloads and int8, bf16 or "
             f"float32 outputs, got {tdata.dtype} -> {out_dtype}"
         )
     if not (tdata.is_contiguous() and tlocal.is_contiguous()):
-        raise ValueError("the CUDA densify kernels need contiguous payload arrays")
+        raise ValueError("the CUDA densify kernel needs contiguous payload arrays")
     if rows % _ROW_MULTIPLE or rows // _ROW_MULTIPLE > 65535:
         raise ValueError(
             f"slab rows must be a multiple of {_ROW_MULTIPLE} and at most "
@@ -218,11 +182,14 @@ def _launch(entry, tdata, tlocal, wt, ntiles, col_tile, out_dtype, row_offset, r
     lib = cuda_lib.load("tiled_ell_densify", _bind)
     with torch.cuda.device(tdata.device):
         stream = cuda_lib.stream_of(tdata)
-        err = getattr(lib, entry)(
+        err = lib.tiled_ell_densify_t_f32(
             tdata.data_ptr(), tlocal.data_ptr(), out.data_ptr(),
             tdata.shape[1], row_offset, rows, wt, ntiles, col_tile,
             _OUT_KIND[out_dtype], stream,
         )
     if err != 0:
-        raise RuntimeError(f"{entry} launch failed: cudaError {err}")
+        raise RuntimeError(f"tiled_ell_densify_t_f32 launch failed: cudaError {err}")
+    launch_counts["tiled_ell_densify_t"] += 1
+    name = str(out_dtype).split(".")[-1]
+    densify_launches_by_dtype[name] = densify_launches_by_dtype.get(name, 0) + 1
     return out

@@ -281,15 +281,15 @@ _RMV_STAGES = (4, 3, 2)
 _RMV_SCHED_COLS = 4  # a schedule's columns of similar counts, side by side
 
 
-def _rmv_plan(R: int, kp: int, ntiles: int, col_tile: int, payload_dtype=torch.bfloat16,
+def _rmv_plan(R: int, kp: int, ntiles: int, col_tile: int,
               operand_dtype=torch.bfloat16) -> RmvPlan:
     """The rmv launch: 64 output columns per block when kp > 32, else 32;
     row ranges of 256-row multiples so that the grid holds ~1024 blocks
     (their [ntiles * col_tile, kp] partial sums are added in range order);
     one block a SM, with two [256, kc] operand stages, the [256, kc]
     float32 sums and the most piece stages (up to 4) that fit. The stages
-    hold the form's bytes, so ``payload_dtype`` (taken, as ``_spmm_plan``
-    takes it) does not change the plan."""
+    hold the form's bytes, so the payload's dtype does not change the
+    plan."""
 
     _check_plan_args(kp, col_tile)
     kc = 64 if kp > 32 else 32
@@ -605,7 +605,7 @@ def tiled_ell_rmv_t(
     R, kp = tdata_t.shape[1], Ct.shape[0]
     _check(tdata_t, tlocal_t, Ct, op_width=R, **kw)
     _check_cuda("tiled_ell_rmv_t", tdata_t, tlocal_t, Ct, out_dtype)
-    plan = _rmv_plan(R, kp, ntiles, col_tile, tdata_t.dtype, Ct.dtype)
+    plan = _rmv_plan(R, kp, ntiles, col_tile, Ct.dtype)
     out = torch.empty((ntiles * col_tile, kp), dtype=torch.float32, device=tdata_t.device)
     if R == 0:
         return out.zero_()

@@ -74,12 +74,12 @@ class ShardedGram:
     meta: Tuple[int, int, bool, bool]
     bwidths: Tuple[Tuple[int, int, int], ...]
     mesh: Mesh
+    _gram: torch.Tensor | None = dataclasses.field(default=None, init=False, repr=False,
+                                                   compare=False)  # gram_cached's
 
     @classmethod
     def from_matrix(cls, m, mesh: Mesh, axis_name: str = "rows", col_tile: int | None = None,
                     slab: int | None = None) -> "ShardedGram":
-        m = m._layout_for("row")
-        m._require_host_structure()
         n, p = m.shape
         ndev = mesh.shape[axis_name]
         rs = -(-n // ndev)
@@ -91,7 +91,7 @@ class ShardedGram:
             col_tile, _ = GramPCAEngine.choose_col_tile(m, budget)
         ct = col_tile
         nt = max(-(-p // ct), 1)
-        indptr, indices, data = m._h_indptr, m._h_indices, m._csr_data_host()
+        indptr, indices, data = m._row_csr()
 
         plan, _, _, nt_plan = GramPCAEngine._bucket_plan(m, ct)
         if nt_plan != nt:
@@ -201,11 +201,9 @@ class ShardedGram:
         return _psum((self._local_gram(d) for d in range(self.ndev)), self.mesh.home)
 
     def gram_cached(self) -> torch.Tensor:
-        g = getattr(self, "_gram_cache", None)
-        if g is None:
-            g = self.gram()
-            self._gram_cache = g
-        return g
+        if self._gram is None:
+            self._gram = self.gram()
+        return self._gram
 
     def project(self, Vp: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
         """Scores ``(A - 1 mu^T) V`` -> ``[n, k]`` on the home device in
@@ -234,7 +232,6 @@ def sharded_gram_pca(m, mesh: Mesh, n_components: int = 50, center: bool = True,
     operator cache, its Gram on the engine. ``mask`` (boolean, length p)
     solves the masked columns' Gram submatrix."""
 
-    from ..models.pca import _host_col_stats
     from .pca import ShardedPCAResult
 
     key = ("sharded", "gram", mesh)
@@ -246,7 +243,7 @@ def sharded_gram_pca(m, mesh: Mesh, n_components: int = 50, center: bool = True,
     pp = op.p_padded
     k = n_components
     home = mesh.home
-    s64, sq64 = _host_col_stats(m)
+    s64, sq64 = m._host_col_stats()
     mean64 = s64 / n
     mean = torch.as_tensor(mean64.astype(np.float32), device=home)
     mu_full = torch.nn.functional.pad(mean, (0, pp - p))

@@ -256,13 +256,11 @@ class ShardedSpMM(_RowSharded):
 
     @classmethod
     def from_matrix(cls, m, mesh: Mesh, axis_name: str = "rows") -> "ShardedSpMM":
-        m = m._layout_for("row")
-        m._require_host_structure()
         n, p = m.shape
         ndev = mesh.shape[axis_name]
         rs = _cv.round_up(-(-n // ndev), 8)
         pp = _cv.pad_rows(p)
-        indptr, indices, data = m._h_indptr, m._h_indices, m._csr_data_host()
+        indptr, indices, data = m._row_csr()
 
         rows, trs, wr, wt = [], [], 1, 1
         for d in range(ndev):
@@ -346,18 +344,14 @@ class ShardedTiled(_RowSharded):
     @classmethod
     def from_matrix(cls, m, mesh: Mesh, axis_name: str = "rows",
                     col_tile: int | None = None) -> "ShardedTiled":
-        from ..models.pca import _host_col_stats
-
-        m = m._layout_for("row")
-        m._require_host_structure()
         n, p = m.shape
         ndev = mesh.shape[axis_name]
         rs = -(-n // ndev)
         rsp, br = cls._padded_rows(rs)
         ct = col_tile or TiledSparseOperator.COL_TILE
         pp = _cv.pad_rows(p)
-        indptr, indices, data = m._h_indptr, m._h_indices, m._csr_data_host()
-        wt, nt, ovw, _ = _cv.tiled_split_widths(indptr, indices, n, p, col_tile=ct)
+        indptr, indices, data = m._row_csr()
+        wt, nt, ovw, _ = m._tiled_widths(ct)
 
         host, ovt_csr, ovtw = [], [], 0
         for d in range(ndev):
@@ -396,7 +390,7 @@ class ShardedTiled(_RowSharded):
         meta = (wt, nt, ct, br, ovw, ovtw)
         slabs = tuple(TiledSparseOperator(*part, (rs, p), meta) for part in parts)
 
-        s64, sq64 = _host_col_stats(m)
+        s64, sq64 = m._host_col_stats()
         cnt = np.bincount(indices, minlength=p)[:p]
         dt = slabs[0].dtype
         home = mesh.home
@@ -443,18 +437,16 @@ class ShardedTiled(_RowSharded):
         JAX package charges it (values f32 + ids i32 for the main level
         and both overflow orientations)."""
 
-        src = m._layout_for("row")
-        src._require_host_structure()
         n, p = m.shape
         ct = TiledSparseOperator.COL_TILE
-        wt, nt, ovw, _ = _cv.tiled_split_widths(src._h_indptr, src._h_indices, n, p, col_tile=ct)
+        wt, nt, ovw, _ = m._tiled_widths(ct)
         rsp, _ = cls._padded_rows(-(-n // ndev))
         main = ndev * nt * wt * rsp * 8
         over = ndev * rsp * ovw * 8
         if ovw:
             # rmv-side width: the whole-matrix per-column overflow maximum
             # (an upper bound on every slab's)
-            ovtw = _cv.tiled_overflow_col_width(src._h_indptr, src._h_indices, n, p, ct, wt)
+            ovtw = m._tiled_overflow_col_width(ct)
             over += ndev * _cv.pad_rows(p) * _cv.round_up(max(ovtw, 1), 8) * 8
         return main + over
 
@@ -463,12 +455,8 @@ class ShardedTiled(_RowSharded):
         """Device bytes of the slabs' rmv forms past :meth:`payload_bytes`
         on a CUDA mesh (``form_charge`` over every slab's rows)."""
 
-        src = m._layout_for("row")
-        src._require_host_structure()
-        n, p = m.shape
-        ct = TiledSparseOperator.COL_TILE
-        wt, nt, _, _ = _cv.tiled_split_widths(src._h_indptr, src._h_indices, n, p, col_tile=ct)
-        rsp, _ = cls._padded_rows(-(-n // ndev))
+        wt, nt, _, _ = m._tiled_widths(TiledSparseOperator.COL_TILE)
+        rsp, _ = cls._padded_rows(-(-m.shape[0] // ndev))
         return form_charge(m, wt, nt, ndev * rsp)
 
 
@@ -487,13 +475,11 @@ class ShardedDensified(_RowSharded):
 
     @classmethod
     def from_matrix(cls, m, mesh: Mesh, axis_name: str = "rows") -> "ShardedDensified":
-        m = m._layout_for("row")
-        m._require_host_structure()
         n, p = m.shape
         ndev = mesh.shape[axis_name]
         rs = _cv.round_up(-(-n // ndev), 8)
-        indptr, indices = m._h_indptr, m._h_indices
-        vals = np.ascontiguousarray(m._csr_data_host(), np.float32)
+        indptr, indices, data = m._row_csr()
+        vals = np.ascontiguousarray(data, np.float32)
         halves = []
         for d, dev in enumerate(mesh.devices):
             r0, r1, lo, hi, s_ip = _slab_rows(indptr, n, d, rs)

@@ -17,6 +17,10 @@ the reference's statistics, ``Normalize`` / ``Log1P`` maps and products.
   a matrix whose values live on the device only: its host structure
   (``indptr``/``indices``) is kept and its host values are pulled once,
   from the ELL, by the first caller that needs them (``_csr_data_host``).
+* The engines read the row-major host CSR through one seam,
+  ``_row_csr``, and keep what they derive from it (column statistics,
+  the Gram bucket plan, the tiled widths, the value gates) in one memo
+  per matrix, ``_memo``.
 
 Divergences from the reference, as in the JAX package:
 
@@ -42,10 +46,11 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..native import build as _native
 from ..ops import stats as _st
 from ..ops.spmm import ell_onehot_spmm, ell_spmm
 from ..types import Direction, canonical_float_dtype, precision_policy, torch_dtype
-from ..utils.tracing import span
+from ..utils.tracing import count, span
 from . import convert as _cv
 
 __all__ = ["SparseMatrix", "csr_matrix", "csc_matrix", "random_sparse"]
@@ -108,6 +113,7 @@ class SparseMatrix:
         self._h_data_pulled: Optional[np.ndarray] = None
         self._transpose_cache: Optional["SparseMatrix"] = None
         self._operator_cache: dict = {}  # engine name -> operator
+        self._derived: dict = {}  # _memo's: key -> what was derived from the CSR
 
     # -- factory methods -------------------------------------------------
 
@@ -289,6 +295,72 @@ class SparseMatrix:
             self.pull_seconds = time.perf_counter() - t0
         return self._h_data_pulled
 
+    # -- the engines' seam: the row-major host CSR and what is derived -------
+
+    def _row_csr(self, values: bool = True):
+        """``(indptr, indices, data)`` of the row-major host CSR (the
+        transpose's for a column-major matrix). ``data`` is None unless
+        ``values``: the structure alone never pulls a device-valued
+        matrix's payload."""
+
+        src = self._layout_for("row")
+        src._require_host_structure()
+        return src._h_indptr, src._h_indices, src._csr_data_host() if values else None
+
+    def _memo(self, key, build):
+        """``build()``, kept under ``key`` for the life of the matrix: the
+        one memo of what the engines derive from its CSR."""
+
+        if key not in self._derived:
+            self._derived[key] = build()
+        return self._derived[key]
+
+    def _host_col_stats(self):
+        """(sum_col, sum_col_squared) per column, float64 numpy, from the
+        host CSR arrays; kept. float32 values take one threaded native pass
+        (``native.build.csr_col_stats``), others, or no native library,
+        numpy's two ``bincount``s; the span's ``route`` says which."""
+
+        cached = self._derived.get("col_stats")
+        with span("pca.host_col_stats", cached=cached is not None) as current:
+            if cached is not None:
+                return cached
+            _, idx, data = self._row_csr()
+            p = self.ncols
+            stats = _native.csr_col_stats(data, idx, p)
+            if stats is not None:
+                current.set(route="native")
+                count("pca.col_stats_native")
+            else:
+                current.set(route="numpy")
+                data = data.astype(np.float64)
+                stats = (np.bincount(idx, weights=data, minlength=p)[:p],
+                         np.bincount(idx, weights=data * data, minlength=p)[:p])
+            self._derived["col_stats"] = stats
+            return stats
+
+    def _tiled_widths(self, col_tile: int):
+        """``(wt, ntiles, ov_w, n_overflow)`` of the two-level tiled layout
+        at ``col_tile`` (``convert.tiled_split_widths``, one O(nnz) pass
+        over the structure); kept per ``col_tile``."""
+
+        def build():
+            indptr, indices, _ = self._row_csr(values=False)
+            return _cv.tiled_split_widths(indptr, indices, *self.shape, col_tile=col_tile)
+
+        return self._memo(("tiled_widths", col_tile), build)
+
+    def _tiled_overflow_col_width(self, col_tile: int) -> int:
+        """The rmv-side overflow width of the tiled layout at ``col_tile``
+        (``convert.tiled_overflow_col_width`` at its ``wt``); kept."""
+
+        def build():
+            indptr, indices, _ = self._row_csr(values=False)
+            wt = self._tiled_widths(col_tile)[0]
+            return _cv.tiled_overflow_col_width(indptr, indices, *self.shape, col_tile, wt)
+
+        return self._memo(("tiled_overflow_col_width", col_tile), build)
+
     # -- value gates -------------------------------------------------------
 
     def values_bf16_exact(self) -> bool:
@@ -297,24 +369,18 @@ class SparseMatrix:
         the device for a device-valued matrix (padding slots are zero, so
         exact), never by pulling its payload. Cached."""
 
-        cached = getattr(self, "_bf16_exact_cache", None)
-        if cached is not None:
-            return cached
-        if self._h_data is None:
-            d = self.ell_data
-            out = bool(torch.equal(d.to(torch.bfloat16).to(d.dtype), d))
-        else:
+        def build():
+            if self._h_data is None:
+                d = self.ell_data
+                return bool(torch.equal(d.to(torch.bfloat16).to(d.dtype), d))
             v = np.ascontiguousarray(self._h_data, np.float32)
-            from ..native import build as _native
-
             lib = _native.get_lib()
             if lib is not None:
-                out = bool(lib.f32_bf16_exact(v, len(v)))
-            else:
-                t = torch.from_numpy(v)
-                out = bool(torch.equal(t.to(torch.bfloat16).to(torch.float32), t))
-        self._bf16_exact_cache = out
-        return out
+                return bool(lib.f32_bf16_exact(v, len(v)))
+            t = torch.from_numpy(v)
+            return bool(torch.equal(t.to(torch.bfloat16).to(torch.float32), t))
+
+        return self._memo("bf16_exact", build)
 
     def values_int8_exact(self) -> bool:
         """True when every stored value is an integer in ``[-127, 127]`` —
@@ -322,17 +388,14 @@ class SparseMatrix:
         products). Decided on the device for a device-valued matrix.
         Cached."""
 
-        cached = getattr(self, "_int8_exact_cache", None)
-        if cached is not None:
-            return cached
-        if self._h_data is None:
-            d = self.ell_data
-            out = bool(((d.abs() <= 127) & (d == torch.round(d))).all())
-        else:
+        def build():
+            if self._h_data is None:
+                d = self.ell_data
+                return bool(((d.abs() <= 127) & (d == torch.round(d))).all())
             v = self._h_data
-            out = bool(np.all(np.abs(v) <= 127) and not np.any(v != np.rint(v)))
-        self._int8_exact_cache = out
-        return out
+            return bool(np.all(np.abs(v) <= 127) and not np.any(v != np.rint(v)))
+
+        return self._memo("int8_exact", build)
 
     # -- conversion ----------------------------------------------------------
 

@@ -111,6 +111,30 @@ def test_gram_engine_takes_the_masked_submatrix(counts, mask):
     assert np.abs(T - Ts).max() <= 1e-4 * np.abs(Ts).max()
 
 
+@pytest.mark.parametrize("engine", ["sparse", "gram"])
+@pytest.mark.parametrize("method", ["randomized", "lanczos"])
+def test_an_all_true_mask_gives_the_unmasked_model(counts, engine, method):
+    """Both models run one fit core: a mask over every column gives
+    ``SparsePCA``'s model on the same seed and builder (components,
+    explained variance, scores to 1e-6 of the largest; mean and total
+    variance)."""
+
+    setup = METHODS[method][0]
+    mp = setup(MaskedSparsePCABuilder().mask(np.ones(120, bool)).n_components(K)
+               .engine(engine)).build()
+    sp_ = setup(SparsePCABuilder().n_components(K).engine(engine)).build()
+    Tm = mp.fit_transform(SparseMatrix.from_scipy(counts, device="cpu")).numpy()
+    Ts = sp_.fit_transform(SparseMatrix.from_scipy(counts, device="cpu")).numpy()
+    pairs = {"components": (mp.components_.numpy(), sp_.components_.numpy()),
+             "explained_variance": (mp.explained_variance_, sp_.explained_variance_),
+             "scores": (Tm, Ts)}
+    for name, (got, want) in pairs.items():
+        assert got.shape == want.shape, name
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max(), name
+    np.testing.assert_array_equal(mp.mean_, sp_.mean_)
+    assert mp.total_variance_ == pytest.approx(sp_.total_variance_, rel=1e-6)
+
+
 @pytest.mark.parametrize("engine", ["sparse", "dense"])
 def test_fit_equals_pca_of_the_sliced_matrix(counts, mask, engine):
     """The Lanczos fit through ``MaskedOperator`` gives the model of the
@@ -213,7 +237,7 @@ def test_scipy_input_goes_to_the_card_by_default(counts, mask):
 
 
 def test_masked_operator_is_what_non_gram_engines_solve(counts, mask, monkeypatch):
-    from single_algebra_tpu_torch.models import masked_pca as tm
+    from single_algebra_tpu_torch.models import pca as tm  # the fit core both models share
 
     seen = []
     orig = tm._fit_graph

@@ -198,7 +198,7 @@ def test_launch_plans_fit_shared_memory(ct, pdt, odt):
             plan = sk._spmm_plan(wt, ct, kp, p, o)
             assert plan.smem <= 232_448 and plan.rows % 32 == 0 and plan.stages >= 2
             assert plan.kc * -(-kp // plan.kc) >= kp and plan.slots <= wt
-        rplan = sk._rmv_plan(500_736, kp, 237, ct, p, o)
+        rplan = sk._rmv_plan(500_736, kp, 237, ct, o)
         assert rplan.smem <= 232_448 and rplan.rows % 256 == 0
         assert rplan.chunks * rplan.kc >= kp and rplan.col_groups * 256 >= ct
         assert rplan.nranges * rplan.rows >= 500_736 > (rplan.nranges - 1) * rplan.rows
@@ -688,7 +688,7 @@ def test_cuda_rmv_with_a_form_equals_rmv_without(cuda, pdt, odt, wt, kp, R, ntil
     Ct = operand(52, kp, R, odt).to(cuda)
     kw = dict(wt=wt, ntiles=ntiles, col_tile=ct)
     if R > 8192:
-        assert _rmv_plan(R, kp, ntiles, ct, vals.dtype, Ct.dtype).nranges > 1
+        assert _rmv_plan(R, kp, ntiles, ct, Ct.dtype).nranges > 1
     form = tiled_ell_rmv_form(vals, ids, **kw)
     cuda_lib.reset_launch_counts()
     got = tiled_ell_rmv_t(vals, ids, Ct, form=form, **kw)

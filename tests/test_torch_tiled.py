@@ -172,6 +172,53 @@ def test_payload_bytes_and_fits_match_jax(case):
     assert not TiledSparseOperator.fits(m, budget_bytes=b - 1)
 
 
+def test_width_passes_run_once_per_col_tile(monkeypatch):
+    """The O(nnz) width passes over the structure run once per matrix and
+    ``col_tile``: the gates (``fits`` at two budgets, the mesh's charge)
+    and the builds read the widths the matrix keeps."""
+
+    from single_algebra_tpu_torch import parallel as P
+    from single_algebra_tpu_torch.sparse import convert as cv
+
+    widths, overflow = [], []
+    real_w, real_o = cv.tiled_split_widths, cv.tiled_overflow_col_width
+
+    def counted_w(*a, **kw):
+        widths.append(kw["col_tile"])
+        return real_w(*a, **kw)
+
+    def counted_o(*a):
+        overflow.append(a[4])
+        return real_o(*a)
+
+    monkeypatch.setattr(cv, "tiled_split_widths", counted_w)
+    monkeypatch.setattr(cv, "tiled_overflow_col_width", counted_o)
+    m = SparseMatrix.from_scipy(heavy(9), device="cpu")
+    b = TiledSparseOperator.payload_bytes(m)
+    assert TiledSparseOperator.fits(m, budget_bytes=b)
+    assert not TiledSparseOperator.fits(m, budget_bytes=b - 1)
+    assert P.ShardedTiled.payload_bytes(m, 2) + P.ShardedTiled.form_bytes(m, 2) > 0
+    op = TiledSparseOperator.from_matrix(m)
+    P.ShardedTiled.from_matrix(m, P.make_mesh(2, device="cpu"))
+    P.ShardedTiled.from_matrix(m, P.make_mesh(2, device="cpu"), col_tile=128)
+    assert op.meta[4] > 0  # the overflow side is charged too
+    assert sorted(widths) == [128, 256]
+    assert overflow == [256]
+
+
+def test_structure_reads_pull_no_values():
+    """The capacity gates read the host structure alone: a matrix whose
+    values live on its device (a value map's result) keeps them there."""
+
+    from single_algebra_tpu_torch.linalg.gram import GramPCAEngine
+
+    v = SparseMatrix.from_scipy(heavy(9), device="cpu").log1p_normalize()
+    assert v._h_data is None
+    assert TiledSparseOperator.payload_bytes(v) > 0
+    GramPCAEngine._bucket_plan(v, 256)
+    assert v._h_data_pulled is None
+
+
 def jax_omega(seed, p, l):
     """The sketch ``single_algebra_tpu.linalg.svd.randomized_svd`` draws."""
 
